@@ -1,0 +1,242 @@
+"""DPT feature-pyramid heads for dense prediction from ViT tokens
+(counterpart of styl3r_tpu/models/dpt.py; reference heads/dpt_block.py,
+dpt_head.py, dpt_gs_head.py, dpt_gs_sh_head.py).
+
+Convs run NCHW inside; the heads take (b, l, c) token lists and NHWC images
+and return NHWC maps, as the JAX heads do. The JAX package rewrites the
+align-corners bilinear resize as two matmuls and the k=s transposed convs as
+a linear + pixel shuffle for the TPU; here they are `F.interpolate` and
+`nn.ConvTranspose2d`, as in the reference.
+
+Precision: with a trunk dtype (bf16 on the card) the trunk, the first head
+conv and the image merger run in it; the final convs and expm1 run in f32.
+The head classes convert those submodules with `cast_trunk()`; every
+forward casts its input to the dtype of the weights it meets next.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+from torch import Tensor
+
+
+def upsample2x(x: Tensor) -> Tensor:
+    """NCHW align-corners bilinear 2x upsample."""
+    return F.interpolate(
+        x, size=(x.shape[2] * 2, x.shape[3] * 2), mode="bilinear", align_corners=True
+    )
+
+
+class ResidualConvUnit(nn.Module):
+    """relu-conv-relu-conv with skip (no BN)."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(features, features, 3, padding=1)
+        self.conv2 = nn.Conv2d(features, features, 3, padding=1)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return self.conv2(F.relu(self.conv1(F.relu(x)))) + x
+
+
+class FeatureFusionBlock(nn.Module):
+    """Fuse a coarser path with a skip, upsample 2x, project 1x1. The
+    coarsest block has no skip and so no resConfUnit1."""
+
+    def __init__(self, features: int, has_skip: bool = True):
+        super().__init__()
+        if has_skip:
+            self.resConfUnit1 = ResidualConvUnit(features)
+        self.resConfUnit2 = ResidualConvUnit(features)
+        self.out_conv = nn.Conv2d(features, features, 1)
+
+    def forward(self, x: Tensor, res: Optional[Tensor] = None) -> Tensor:
+        if res is not None:
+            x = x + self.resConfUnit1(res)
+        x = self.resConfUnit2(x)
+        return self.out_conv(upsample2x(x))
+
+
+class DPTTrunk(nn.Module):
+    """Hook + reassemble + fuse; returns the feature_dim path at stride 2
+    (NCHW). The head classes attach `head` (and `input_merger`) to this
+    module, because the reference nests them under `<head>.dpt`."""
+
+    def __init__(
+        self,
+        hook_dims: Sequence[int],
+        hooks: Sequence[int] = (0, 6, 9, 12),
+        layer_dims: Sequence[int] = (96, 192, 384, 768),
+        feature_dim: int = 256,
+        patch_size: int = 16,
+    ):
+        super().__init__()
+        self.hooks = tuple(hooks)
+        self.patch_size = patch_size
+        ld = layer_dims
+        self.act_postprocess = nn.ModuleList(
+            [
+                nn.Sequential(
+                    nn.Conv2d(hook_dims[0], ld[0], 1), nn.ConvTranspose2d(ld[0], ld[0], 4, stride=4)
+                ),
+                nn.Sequential(
+                    nn.Conv2d(hook_dims[1], ld[1], 1), nn.ConvTranspose2d(ld[1], ld[1], 2, stride=2)
+                ),
+                nn.Sequential(nn.Conv2d(hook_dims[2], ld[2], 1)),
+                nn.Sequential(
+                    nn.Conv2d(hook_dims[3], ld[3], 1), nn.Conv2d(ld[3], ld[3], 3, stride=2, padding=1)
+                ),
+            ]
+        )
+        self.scratch = nn.Module()
+        for i, d in enumerate(ld):
+            setattr(self.scratch, f"layer{i + 1}_rn", nn.Conv2d(d, feature_dim, 3, padding=1, bias=False))
+        for i in range(1, 5):
+            setattr(self.scratch, f"refinenet{i}", FeatureFusionBlock(feature_dim, has_skip=i < 4))
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.scratch.layer1_rn.weight.dtype
+
+    def forward(self, tokens: List[Tensor], image_size: Tuple[int, int]) -> Tensor:
+        h, w = image_size
+        nh, nw = h // self.patch_size, w // self.patch_size
+        layers = []
+        for i, hook in enumerate(self.hooks):
+            t = tokens[hook].to(self.dtype)
+            b, _, c = t.shape
+            layers.append(self.act_postprocess[i](t.transpose(1, 2).reshape(b, c, nh, nw)))
+        s = self.scratch
+        rn = [getattr(s, f"layer{i + 1}_rn")(l) for i, l in enumerate(layers)]
+        path4 = s.refinenet4(rn[3])[:, :, : rn[2].shape[2], : rn[2].shape[3]]
+        path3 = s.refinenet3(path4, rn[2])
+        path2 = s.refinenet2(path3, rn[1])
+        return s.refinenet1(path2, rn[0])
+
+
+def reg_dense_pts3d(raw: Tensor, bound: Optional[float] = None, d_min: float = 0.1) -> Tensor:
+    """'exp' postprocess: direction * expm1(norm), with the optional smooth
+    radial clamp to [d_min, bound] (None is the reference path)."""
+    norm = torch.linalg.norm(raw, dim=-1, keepdim=True)
+    direction = raw / torch.clamp(norm, min=1e-8)
+    dist = torch.expm1(norm)
+    if bound is not None:
+        span = bound - d_min
+        dist = d_min + span * torch.tanh(dist / span)
+    return direction * dist
+
+
+def _nhwc(x: Tensor) -> Tensor:
+    return x.permute(0, 2, 3, 1)
+
+
+class DPTPts3dHead(nn.Module):
+    """'dpt' head: regression tower -> (b, h, w, 3) pts3d via the exp
+    postprocess. Reference head Sequential indices 0 (conv), 2 (conv),
+    4 (1x1 conv)."""
+
+    def __init__(
+        self,
+        hook_dims: Sequence[int],
+        feature_dim: int = 256,
+        last_dim: int = 128,
+        hooks: Sequence[int] = (0, 6, 9, 12),
+        layer_dims: Sequence[int] = (96, 192, 384, 768),
+        patch_size: int = 16,
+        pts3d_bound: Optional[float] = None,
+    ):
+        super().__init__()
+        self.pts3d_bound = pts3d_bound
+        self.dpt = DPTTrunk(hook_dims, hooks, layer_dims, feature_dim, patch_size)
+        self.dpt.head = nn.ModuleDict(
+            {
+                "0": nn.Conv2d(feature_dim, feature_dim // 2, 3, padding=1),
+                "2": nn.Conv2d(feature_dim // 2, last_dim, 3, padding=1),
+                "4": nn.Conv2d(last_dim, 3, 1),
+            }
+        )
+
+    def cast_trunk(self, dtype: torch.dtype) -> None:
+        self.dpt.act_postprocess.to(dtype)
+        self.dpt.scratch.to(dtype)
+        self.dpt.head["0"].to(dtype)
+
+    def forward(self, tokens: List[Tensor], image_size: Tuple[int, int]) -> Tensor:
+        head = self.dpt.head
+        x = head["0"](self.dpt(tokens, image_size))
+        x = upsample2x(x).to(head["2"].weight.dtype)
+        x = head["4"](F.relu(head["2"](x)))
+        return reg_dense_pts3d(_nhwc(x), bound=self.pts3d_bound)
+
+
+class GSParamsHead(nn.Module):
+    """Shared body of the 'dpt_gs' and 'dpt_gs_sh' heads: trunk, 2x upsample,
+    optional conv7x7 image merger, then the gs_params tower conv3x3 -> relu ->
+    (dropout, identity in eval) -> conv1x1 (reference indices 0 and 4)."""
+
+    def __init__(
+        self,
+        hook_dims: Sequence[int],
+        out_channels: int,
+        with_merger: bool,
+        feature_dim: int = 256,
+        hooks: Sequence[int] = (0, 6, 9, 12),
+        layer_dims: Sequence[int] = (96, 192, 384, 768),
+        patch_size: int = 16,
+    ):
+        super().__init__()
+        self.dpt = DPTTrunk(hook_dims, hooks, layer_dims, feature_dim, patch_size)
+        self.dpt.head = nn.ModuleDict(
+            {
+                "0": nn.Conv2d(feature_dim, feature_dim, 3, padding=1, bias=False),
+                "4": nn.Conv2d(feature_dim, out_channels, 1),
+            }
+        )
+        if with_merger:
+            self.dpt.input_merger = nn.Sequential(
+                nn.Conv2d(3, feature_dim, 7, padding=3), nn.ReLU()
+            )
+
+    def cast_trunk(self, dtype: torch.dtype) -> None:
+        self.dpt.act_postprocess.to(dtype)
+        self.dpt.scratch.to(dtype)
+        self.dpt.head["0"].to(dtype)
+        if hasattr(self.dpt, "input_merger"):
+            self.dpt.input_merger.to(dtype)
+
+    def _forward(
+        self, tokens: List[Tensor], image_size: Tuple[int, int], images: Optional[Tensor]
+    ) -> Tensor:
+        x = upsample2x(self.dpt(tokens, image_size))
+        if images is not None:
+            merger = self.dpt.input_merger
+            x = x + merger(images.permute(0, 3, 1, 2).to(merger[0].weight.dtype))
+        head = self.dpt.head
+        x = F.relu(head["0"](x.to(head["0"].weight.dtype)))
+        return _nhwc(head["4"](x.to(head["4"].weight.dtype)))
+
+
+class DPTGSHead(GSParamsHead):
+    """'dpt_gs' head: structure params with the direct image-feature merge."""
+
+    def __init__(self, hook_dims: Sequence[int], out_channels: int, **kwargs):
+        super().__init__(hook_dims, out_channels, with_merger=True, **kwargs)
+
+    def forward(
+        self, tokens: List[Tensor], images: Tensor, image_size: Tuple[int, int]
+    ) -> Tensor:
+        return self._forward(tokens, image_size, images)
+
+
+class DPTGSSHHead(GSParamsHead):
+    """'dpt_gs_sh' head: SH appearance at full resolution."""
+
+    def __init__(self, hook_dims: Sequence[int], out_channels: int, **kwargs):
+        super().__init__(hook_dims, out_channels, with_merger=False, **kwargs)
+
+    def forward(self, tokens: List[Tensor], image_size: Tuple[int, int]) -> Tensor:
+        return self._forward(tokens, image_size, None)

@@ -1,0 +1,163 @@
+"""Weights between the JAX package's flax params and the port's modules.
+
+The port's modules carry the reference's torch key names (the ones
+styl3r_tpu/utils/checkpoint.py reads), so `from_jax_params` inverts that
+file's layout rules: linear kernels transpose, HWIO conv kernels become
+OIHW, and a PatchExpand dense becomes the ConvTranspose2d it replaces.
+PatchExpand's bias is the ConvTranspose bias tiled k*k times; the inverse
+keeps the first copy and raises if the copies differ.
+
+`init_like_flax_` draws weights the way flax's default initializers do, so
+a randomly initialized port produces Gaussians at the scale of a randomly
+initialized JAX model.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Mapping
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+
+def _linear(p: Mapping, out: Dict, name: str) -> None:
+    out[f"{name}.weight"] = np.asarray(p["kernel"]).T
+    if "bias" in p:
+        out[f"{name}.bias"] = np.asarray(p["bias"])
+
+
+def _conv(p: Mapping, out: Dict, name: str) -> None:
+    out[f"{name}.weight"] = np.asarray(p["kernel"]).transpose(3, 2, 0, 1)
+    if "bias" in p:
+        out[f"{name}.bias"] = np.asarray(p["bias"])
+
+
+def _layernorm(p: Mapping, out: Dict, name: str) -> None:
+    out[f"{name}.weight"] = np.asarray(p["scale"])
+    out[f"{name}.bias"] = np.asarray(p["bias"])
+
+
+def _patch_expand(p: Mapping, out: Dict, name: str, k: int) -> None:
+    kernel = np.asarray(p["expand"]["kernel"])  # (in, k*k*out), [(dy*k+dx)*out + o]
+    bias = np.asarray(p["expand"]["bias"]).reshape(k * k, -1)
+    if not (bias == bias[:1]).all():
+        raise ValueError(f"{name}: PatchExpand bias is not one ConvTranspose bias tiled {k * k} times")
+    in_ch, out_ch = kernel.shape[0], bias.shape[1]
+    out[f"{name}.weight"] = kernel.reshape(in_ch, k, k, out_ch).transpose(0, 3, 1, 2)
+    out[f"{name}.bias"] = bias[0]
+
+
+def _block(p: Mapping, out: Dict, name: str) -> None:
+    for norm in ("norm1", "norm2", "norm3", "norm_y"):
+        if norm in p:
+            _layernorm(p[norm], out, f"{name}.{norm}")
+    for proj in ("qkv", "proj"):
+        _linear(p["attn"][proj], out, f"{name}.attn.{proj}")
+    if "cross_attn" in p:
+        for proj in ("projq", "projk", "projv", "proj"):
+            _linear(p["cross_attn"][proj], out, f"{name}.cross_attn.{proj}")
+    for fc in ("fc1", "fc2"):
+        _linear(p["mlp"][fc], out, f"{name}.mlp.{fc}")
+
+
+def _numbered(p: Mapping, prefix: str):
+    i = 0
+    while f"{prefix}_{i}" in p:
+        yield i, p[f"{prefix}_{i}"]
+        i += 1
+
+
+def _croco(p: Mapping, out: Dict, name: str) -> None:
+    enc = p["encoder"]
+    _conv(enc["patch_embed"]["proj"], out, f"{name}.patch_embed.proj")
+    for i, blk in _numbered(enc, "enc_blocks"):
+        _block(blk, out, f"{name}.enc_blocks.{i}")
+    _layernorm(enc["enc_norm"], out, f"{name}.enc_norm")
+    if "intrinsic_encoder" in p:
+        _linear(p["intrinsic_encoder"], out, f"{name}.intrinsic_encoder")
+    _linear(p["decoder_embed"], out, f"{name}.decoder_embed")
+    for stack in ("dec_blocks", "dec_blocks2"):
+        for i, blk in _numbered(p, stack):
+            _block(blk, out, f"{name}.{stack}.{i}")
+    _layernorm(p["dec_norm"], out, f"{name}.dec_norm")
+
+
+def _trunk(p: Mapping, out: Dict, name: str) -> None:
+    ap = f"{name}.act_postprocess"
+    _conv(p["act_0_proj"], out, f"{ap}.0.0")
+    _patch_expand(p["act_0_up"], out, f"{ap}.0.1", 4)
+    _conv(p["act_1_proj"], out, f"{ap}.1.0")
+    _patch_expand(p["act_1_up"], out, f"{ap}.1.1", 2)
+    _conv(p["act_2_proj"], out, f"{ap}.2.0")
+    _conv(p["act_3_proj"], out, f"{ap}.3.0")
+    _conv(p["act_3_down"], out, f"{ap}.3.1")
+    for i in range(1, 5):
+        _conv(p[f"layer{i}_rn"], out, f"{name}.scratch.layer{i}_rn")
+        rp = p[f"refinenet{i}"]
+        for unit in ("resConfUnit1", "resConfUnit2"):
+            if unit in rp:
+                for conv in ("conv1", "conv2"):
+                    _conv(rp[unit][conv], out, f"{name}.scratch.refinenet{i}.{unit}.{conv}")
+        _conv(rp["out_conv"], out, f"{name}.scratch.refinenet{i}.out_conv")
+
+
+def _pts3d_head(p: Mapping, out: Dict, name: str) -> None:
+    _trunk(p["trunk"], out, f"{name}.dpt")
+    for flax_name, idx in (("head_conv1", 0), ("head_conv2", 2), ("head_conv3", 4)):
+        _conv(p[flax_name], out, f"{name}.dpt.head.{idx}")
+
+
+def _gs_head(p: Mapping, out: Dict, name: str) -> None:
+    _trunk(p["trunk"], out, f"{name}.dpt")
+    _conv(p["head"]["head_conv1"], out, f"{name}.dpt.head.0")
+    _conv(p["head"]["head_conv2"], out, f"{name}.dpt.head.4")
+    if "input_merger" in p:
+        _conv(p["input_merger"], out, f"{name}.dpt.input_merger.0")
+
+
+def from_jax_params(params: Mapping, prefix: str = "encoder.") -> Dict[str, torch.Tensor]:
+    """Flax Styl3rEncoder params ({'params': ...}, arrays) -> a state dict
+    for Styl3rModel (keys under `prefix`), as CPU tensors."""
+    p = params["params"] if "params" in params else params
+    out: Dict[str, np.ndarray] = {}
+    _croco(p["backbone"], out, "backbone")
+    _croco(p["token_stylizer"], out, "token_stylizer")
+    _pts3d_head(p["head1"], out, "downstream_head1")
+    _pts3d_head(p["head2"], out, "downstream_head2")
+    _gs_head(p["gaussian_param_head"], out, "gaussian_param_head")
+    _gs_head(p["gaussian_param_head2"], out, "gaussian_param_head2")
+    _gs_head(p["gaussian_appearance_head"], out, "gaussian_appearance_head")
+    return {
+        prefix + k: torch.from_numpy(np.ascontiguousarray(np.asarray(v, dtype=np.float32)))
+        for k, v in out.items()
+    }
+
+
+# flax's lecun_normal: a normal truncated to +-2 stddev, rescaled so that the
+# truncated distribution has variance 1/fan_in.
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_like_flax_(module: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Redraw every weight of `module` in place the way flax's defaults do:
+    lecun-normal kernels (fan_in = input features x receptive field; for a
+    k=s ConvTranspose2d, its input channels, as for the flax dense it
+    replaces), zero biases, LayerNorm ones and zeros."""
+    for m in module.modules():
+        if isinstance(m, nn.LayerNorm):
+            m.weight.fill_(1.0)
+            m.bias.zero_()
+        elif isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+            w = m.weight
+            if isinstance(m, nn.ConvTranspose2d):
+                fan_in = w.shape[0]
+            else:
+                fan_in = w.shape[1] * math.prod(w.shape[2:])
+            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+            nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+    return module
