@@ -6,23 +6,38 @@
 Phases, each of which fails the run (non-zero exit, no result line) when it
 fails:
   1. device: needs CUDA; prints the card's name and power limit;
-  2. build: compiles every kernel under styl3r_tpu_torch/csrc with nvcc;
+  2. build: compiles every kernel under styl3r_tpu_torch/csrc with nvcc, all
+     at once;
   3. kernels: holds each kernel against its plain PyTorch version on a dense
-     saturating Gaussian cloud at the main path's scale;
-  4. main path: the full-width model (ViT-L 24x1024 encoders, 12x768
-     decoders, random weights from a seed, bf16 trunks) serves three 2-view
-     256^2 scenes through Styl3rModel.forward; every kernel must have been
-     launched; then the kernels are held against their plain versions on
-     the main path's own inputs, and 10 warm forwards are timed;
-  5. kernel times: each kernel's device time (torch.profiler), call time and
+     saturating Gaussian cloud at the main path's scale (the backward with
+     cotangents from a seeded generator);
+  4. serving path: the full-width model (ViT-L 24x1024 encoders, 12x768
+     decoders, random weights from a seed, bf16 backbone/stylizer and DPT
+     trunks stored in bf16) serves three 2-view 256^2 scenes through
+     Styl3rModel.forward; the forward compositor must have been launched
+     once a scene; then it is held against its plain version on the path's
+     own inputs, and 10 warm forwards are timed;
+  5. training, stage 1: the full-width model with f32 master weights, bf16
+     compute and scratch_init_heads; the backward kernel is held against its
+     plain version on the path's own inputs and MSE cotangents; then 2 warm
+     and 5 timed steps of make_train_step (MSE, make_optimizer) on b = 2
+     2-view 256^2 scenes, each of which launches each compositor kernel once
+     and reaches the geometry heads;
+  6. training, stage 2: the same model, back at its scratch-initialized
+     weights, and batch, make_stage2_optimizer and style 10 + identity with
+     VGG19 at random weights; every step launches
+     each kernel twice, leaves the frozen parameters bitwise unchanged and,
+     from the second step, changes the stylizer and the appearance head;
+  7. kernel times: each kernel's device time (torch.profiler), call time and
      plain version's time (CUDA events), beside its bound;
-  6. reference: a tiny-width model's Gaussians on the card agree with the
+  8. reference: a tiny-width model's Gaussians on the card agree with the
      same model's on the CPU (whose agreement with the JAX package the CPU
      tests show).
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}.
 """
 
+import gc
 import json
 import os
 import statistics
@@ -34,10 +49,23 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_F32_FLOPS = 67e12  # H100 SXM FP32 (non-tensor) peak, 700 W
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 TOL = 1e-5  # kernel vs plain, f32 values of order 1: rounding only
+# Backward kernel vs plain: each pair's gradients are sums over 256 pixels
+# taken in another order, and the window-level reconstruction divides by
+# products of (1 - alpha), so 1e-4 of each gradient column's largest
+# magnitude. Pairs no window walked must be exactly 0 in both.
+BWD_TOL = 1e-4
 # Per (pixel, pair) evaluation of the compositor: 11 for the quadratic
 # power, 1 exp, 2 for the clamped alpha, 1 weight, 8 for four
 # multiply-adds into r, g, b, depth, 2 for the transmittance update.
 COMPOSITE_OPS_PER_EVAL = 25
+# Per (pixel, pair) evaluation of the backward, each operation the function
+# needs counted once (a transcendental counts 1): offsets 2, power 9, clamped
+# alpha with its exp 4, masks 2, log1p 2, window sum 1, T_i 4, weight 1, q 7,
+# color/depth grads 4, live 1, dalpha 9, geometry and opacity grads 18,
+# suffix 2, and 10 for the sums over pixels of the ten gradient columns.
+# csrc/composite_bwd.cu recomputes the first 19 (all before the window sum)
+# in its second pass; that is its own cost and not in the bound.
+COMPOSITE_BWD_OPS_PER_EVAL = 76
 
 
 def log(msg):
@@ -85,9 +113,10 @@ def kernel_device_ms(fn, reps, kernel_name):
     return sum(e.self_device_time_total for e in hits) / count / 1e3
 
 
-def example_batch(seed, device, v=2, hw=256, t=1):
-    """bench.py's scene: v context views + a style image, uniform noise from
-    `seed`, one target at the first context camera."""
+def example_batch(seed, device, v=2, hw=256, t=1, b=1, targets=False):
+    """bench.py's scene (bench_train_step.py's with b > 1): v context views
+    + a style image, uniform noise from `seed`, t targets at the first
+    context camera, with target images if `targets`."""
     import numpy as np
 
     from styl3r_tpu_torch.models.styl3r import Batch, batch_to
@@ -95,13 +124,14 @@ def example_batch(seed, device, v=2, hw=256, t=1):
     rng = np.random.default_rng(seed)
     k = np.asarray([[1.1, 0, 0.5], [0, 1.1, 0.5], [0, 0, 1.0]], np.float32)
     return batch_to(Batch(
-        context_images=rng.uniform(0, 1, (1, v, hw, hw, 3)),
-        context_intrinsics=np.broadcast_to(k, (1, v, 3, 3)),
-        target_extrinsics=np.broadcast_to(np.eye(4, dtype=np.float32), (1, t, 4, 4)),
-        target_intrinsics=np.broadcast_to(k, (1, t, 3, 3)),
-        target_near=np.full((1, t), 1.0),
-        target_far=np.full((1, t), 100.0),
-        style_image=rng.uniform(0, 1, (1, hw, hw, 3)),
+        context_images=rng.uniform(0, 1, (b, v, hw, hw, 3)),
+        context_intrinsics=np.broadcast_to(k, (b, v, 3, 3)),
+        target_extrinsics=np.broadcast_to(np.eye(4, dtype=np.float32), (b, t, 4, 4)),
+        target_intrinsics=np.broadcast_to(k, (b, t, 3, 3)),
+        target_near=np.full((b, t), 1.0),
+        target_far=np.full((b, t), 100.0),
+        style_image=rng.uniform(0, 1, (b, hw, hw, 3)),
+        target_images=rng.uniform(0, 1, (b, t, hw, hw, 3)) if targets else None,
     ), device)
 
 
@@ -198,27 +228,138 @@ def dense_cloud_inputs(device, g=131072, n_views=2, hw=(256, 256), max_per_tile=
 
 
 def main_path_inputs(gaussians, batch, hw, render_kwargs):
-    """The compositor inputs of render_gaussians for one scene and one
-    target (b = v = 1, no scale invariance): the main path's own."""
+    """The compositor inputs of render_gaussians for b scenes and t targets
+    each (no scale invariance, black background): a path's own."""
     import torch
 
     from styl3r_tpu_torch.ops.rasterizer.camera import make_raster_camera
     from styl3r_tpu_torch.ops.rasterizer.render import composite_inputs
 
     dev = batch.target_extrinsics.device
-    zeros = torch.zeros(1, 3, device=dev)
+    b, t = batch.target_extrinsics.shape[:2]
+    n = b * t
+    zeros = torch.zeros(n, 3, device=dev)
     cams = make_raster_camera(
-        batch.target_extrinsics[0], batch.target_intrinsics[0], batch.target_near[0],
-        batch.target_far[0], hw, cam_rot_delta=zeros, cam_trans_delta=zeros,
+        batch.target_extrinsics.reshape(n, 4, 4), batch.target_intrinsics.reshape(n, 3, 3),
+        batch.target_near.reshape(n), batch.target_far.reshape(n), hw,
+        cam_rot_delta=zeros, cam_trans_delta=zeros,
     )
+
+    def per_view(x):
+        return x[:, None].expand(b, t, *x.shape[1:]).reshape(n, *x.shape[1:])
+
     g = gaussians.means.shape[1]
     return composite_inputs(
-        cams, gaussians.means, None, gaussians.harmonics, gaussians.opacities, hw,
-        torch.zeros(1, 3, device=dev), scales=gaussians.scales, rotations=gaussians.rotations,
+        cams, per_view(gaussians.means), None, per_view(gaussians.harmonics),
+        per_view(gaussians.opacities), hw, zeros,
+        scales=per_view(gaussians.scales), rotations=per_view(gaussians.rotations),
         max_tiles_per_gaussian=render_kwargs["max_tiles_per_gaussian"],
         max_per_tile=render_kwargs["max_per_tile"],
-        pair_cap=render_kwargs["pair_cap_per_gaussian"] * g,
+        pair_cap=render_kwargs["pair_cap_per_gaussian"] * n * g,
     )
+
+
+def composite_bwd_work(inputs, n_done):
+    """(evaluations, bytes) the backward needs for these inputs: the walked
+    (pixel, pair) evaluations; each walked pair row read once, the
+    (n_pairs, 12) gradient written once, the per-pixel t_final and four
+    cotangents and the per-tile ranges read once."""
+    evals, _ = composite_work(inputs, n_done)
+    n_tiles = inputs.starts.numel()
+    nbytes = (evals // 256) * 48 + inputs.attrs.shape[0] * 48 + n_tiles * (256 * 24 + 12)
+    return evals, nbytes
+
+
+def walked_pairs(inputs, n_done):
+    """(n_pairs,) bool: the pairs inside their tile's clamped range and
+    inside the windows the forward composited; every other pair's gradient
+    is exactly 0."""
+    import torch
+
+    starts = inputs.starts.long()
+    ends = torch.minimum(starts + inputs.counts.long(), (starts // 128) * 128 + 128 * n_done.long())
+    keep = ends > starts
+    delta = torch.zeros(inputs.attrs.shape[0] + 1, dtype=torch.long, device=starts.device)
+    delta.index_add_(0, starts[keep], torch.ones_like(starts[keep]))
+    delta.index_add_(0, ends[keep], -torch.ones_like(ends[keep]))
+    return torch.cumsum(delta, 0)[:-1] > 0
+
+
+def check_composite_bwd(inputs, max_per_tile, dcolor, ddepth, dalpha, reps=20):
+    """The kernels' pipeline (backward kernel on the forward kernel's n_done
+    and t_final) vs the plain one (plain backward on the plain forward's) on
+    one set of compositor inputs and cotangents: the largest error, exact
+    zeros, the median times of a kernel call and of a plain call (CUDA
+    events, on the kernel's forward state), and the bound."""
+    import torch
+
+    from styl3r_tpu_torch.ops.rasterizer import composite
+
+    fwd_args = (inputs.attrs, inputs.starts, inputs.counts, inputs.backgrounds, inputs.grid, max_per_tile,
+                inputs.n_views)
+    fwd, fwd_plain = composite.composite_tiles(*fwd_args), composite.composite_tiles_plain(*fwd_args)
+    cot = (dcolor.contiguous(), ddepth.contiguous(), dalpha.contiguous(), inputs.grid, inputs.n_views)
+    args = (inputs.attrs, inputs.starts, inputs.counts, fwd.n_done, fwd.t_final, *cot)
+    kern = composite.composite_backward(*args)
+    plain = composite.composite_backward_plain(
+        inputs.attrs, inputs.starts, inputs.counts, fwd_plain.n_done, fwd_plain.t_final, *cot
+    )
+    torch.cuda.synchronize()
+    if not bool(torch.isfinite(kern).all()):
+        raise AssertionError("composite_bwd: non-finite gradients")
+    walked = walked_pairs(inputs, fwd.n_done)
+    if bool((kern[~walked] != 0).any()) or bool((plain[~walked] != 0).any()):
+        raise AssertionError("composite_bwd: a pair no window walked has a gradient")
+    # Elsewhere an exact 0 of one version may be a denormal of the other:
+    # T_i deep behind saturated pixels underflows at other points.
+    zero_mismatch = (plain == 0) != (kern == 0)
+    err = rel = 0.0
+    for c in range(composite.N_GRAD):
+        scale = float(plain[:, c].abs().max())
+        e = float((kern[:, c] - plain[:, c]).abs().max())
+        if e > BWD_TOL * scale:
+            raise AssertionError(f"composite_bwd: column {c} differs from the plain version by {e} > {BWD_TOL} * {scale}")
+        err, rel = max(err, e), max(rel, e / scale if scale > 0 else 0.0)
+    call_ms = cuda_ms(lambda: composite.composite_backward(*args), reps)
+    plain_ms = cuda_ms(lambda: composite.composite_backward_plain(*args), max(3, reps // 4))
+    evals, nbytes = composite_bwd_work(inputs, fwd.n_done)
+    t_ops = evals * COMPOSITE_BWD_OPS_PER_EVAL / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return dict(
+        args=args, max_abs_err=err, max_rel_err=rel, call_ms=call_ms, plain_ms=plain_ms,
+        bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes", evals=evals,
+        pairs_with_grad=int((plain.abs().sum(1) > 0).sum()), n_done_max=int(fwd.n_done.max()),
+        walked=int(walked.sum()), zero_mismatch=int(zero_mismatch.sum()),
+        zero_mismatch_max=float(torch.where(zero_mismatch, (kern - plain).abs(), torch.zeros_like(kern)).max()),
+    )
+
+
+def composite_bwd_device_ms(res, reps=20):
+    """Adds the backward kernel's device time on the inputs check_composite_bwd held."""
+    from styl3r_tpu_torch.ops.rasterizer import composite
+
+    res["ms"] = kernel_device_ms(lambda: composite.composite_backward(*res["args"]), reps, "composite_bwd_kernel")
+    return res
+
+
+def mse_cotangents(inputs, max_per_tile, target_images):
+    """The stage-1 loss's cotangents at the compositor's outputs: dL/dcolor
+    of mean((color - target)^2) in the tile layout; depth and alpha get
+    none, and with a black background the folded dalpha is 0."""
+    import torch
+
+    from styl3r_tpu_torch.ops.rasterizer import composite
+    from styl3r_tpu_torch.ops.rasterizer.render import _tiles_to_image
+
+    out = composite.composite_tiles(
+        inputs.attrs, inputs.starts, inputs.counts, inputs.backgrounds, inputs.grid, max_per_tile, inputs.n_views
+    )
+    with torch.enable_grad():
+        color = out.color.detach().requires_grad_()
+        image = _tiles_to_image(color, inputs.n_views, *inputs.grid)
+        loss = ((image - target_images.reshape(image.shape)) ** 2).mean()
+        (dcolor,) = torch.autograd.grad(loss, color)
+    return dcolor, torch.zeros_like(out.depth), torch.zeros_like(out.alpha)
 
 
 def reference_phase(card):
@@ -252,6 +393,91 @@ def reference_phase(card):
     log(f"reference: tiny model on the card vs the CPU: Gaussians within {worst:.3g} of their scale [{card}]")
 
 
+def train_phase(model, batch, hw, render_kwargs, card, stage, reps=5, warm=2):
+    """Drive make_train_step on the full-width model: `warm` + `reps` steps,
+    each checked, the last `reps` timed with CUDA events."""
+    import torch
+
+    from styl3r_tpu_torch.losses.vgg import VGG19Features
+    from styl3r_tpu_torch.ops.rasterizer import composite
+    from styl3r_tpu_torch.train.losses import LossBundle
+    from styl3r_tpu_torch.train.step import TrainState, make_optimizer, make_stage2_optimizer, make_train_step
+    from styl3r_tpu_torch.utils.convert import init_like_flax_
+
+    dev = batch.context_images.device
+    if stage == 1:
+        optimizer = make_optimizer(model)
+        step = make_train_step(model, optimizer, hw, stylized=False, **render_kwargs)
+        per_step = 1  # one forward and one backward render a step
+    else:
+        vgg = VGG19Features().to(dev)
+        init_like_flax_(vgg, torch.Generator(dev).manual_seed(3))
+        loss_fn = LossBundle(mse_weight=None, style_weight=10.0, identity=True, vgg19=vgg.requires_grad_(False))
+        optimizer = make_stage2_optimizer(model)
+        step = make_train_step(model, optimizer, hw, loss_fn=loss_fn, stylized=True, identity_branch=True,
+                               **render_kwargs)
+        per_step = 2  # the main and the identity forward
+        frozen = {n: p.detach().clone() for n, p in model.named_parameters() if not p.requires_grad}
+        enc = model.encoder
+        watched = {
+            "token_stylizer": enc.token_stylizer.dec_blocks[0].mlp.fc1.weight,
+            "gaussian_appearance_head": enc.gaussian_appearance_head.dpt.head["4"].weight,
+        }
+        before = {k: v.detach().clone() for k, v in watched.items()}
+    geometry_heads = ("downstream_head1", "downstream_head2", "gaussian_param_head", "gaussian_param_head2")
+    model.zero_grad(set_to_none=True)
+    generator = torch.Generator(dev).manual_seed(stage)
+    state = TrainState()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    composite.launches = composite.backward_launches = 0
+    times, losses, lives = [], [], []
+    for i in range(warm + reps):
+        fwd0, bwd0 = composite.launches, composite.backward_launches
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        metrics = step(state, batch, generator)
+        end.record()
+        torch.cuda.synchronize()
+        if i >= warm:
+            times.append(start.elapsed_time(end))
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        live, slots = int(metrics["live_pairs"]), int(metrics["pair_slots"])
+        losses.append(loss)
+        lives.append(live)
+        where = f"stage {stage} step {i}"
+        if not (torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"]) and gnorm > 0):
+            raise AssertionError(f"{where}: loss {loss}, grad norm {gnorm}")
+        if live > slots:
+            raise AssertionError(f"{where}: the pair cap dropped pairs ({live} live > {slots} slots)")
+        launched = (composite.launches - fwd0, composite.backward_launches - bwd0)
+        if launched != (per_step, per_step):
+            raise AssertionError(f"{where}: compositor launches (fwd, bwd) {launched}, expected {per_step} each")
+        if stage == 1:
+            for name in geometry_heads:
+                g = getattr(model.encoder, name).dpt.head["4"].weight.grad
+                if g is None or not bool((g != 0).any()):
+                    raise AssertionError(f"{where}: no gradient reached {name}")
+        else:
+            for name, p in model.named_parameters():
+                if name in frozen and not torch.equal(p, frozen[name]):
+                    raise AssertionError(f"{where}: frozen parameter {name} changed")
+            if i >= 1:
+                for name, p in watched.items():
+                    if torch.equal(p, before[name]):
+                        raise AssertionError(f"{where}: {name} did not change")
+    peak_gb = torch.cuda.max_memory_allocated() / 2**30
+    ms = statistics.median(times)
+    b = batch.context_images.shape[0]
+    timed_lives = lives[warm:]
+    log(f"training stage {stage}: {ms:.2f} ms/step, {1e3 * b / ms:.3f} examples/s (median of {reps}, b = {b}), "
+        f"peak memory {peak_gb:.2f} GiB; loss {losses[0]:.5f} -> {losses[-1]:.5f}, grad norm {gnorm:.4g}, "
+        f"live pairs {lives[0]} at the first step, {min(timed_lives)}-{max(timed_lives)} in the timed steps, "
+        f"of {slots} slots; launches fwd {composite.launches} bwd {composite.backward_launches} [{card}]")
+    return dict(ms=ms, examples_per_s=1e3 * b / ms, peak_gib=peak_gb, fwd=composite.launches,
+                bwd=composite.backward_launches, losses=losses, live_pairs=lives)
+
+
 def main():
     import torch
 
@@ -261,6 +487,7 @@ def main():
     sys.path.insert(0, ROOT)
     from styl3r_tpu_torch.models.styl3r import Styl3rModel
     from styl3r_tpu_torch.ops.rasterizer import composite
+    from styl3r_tpu_torch.train.scratch_init import scratch_init_heads
     from styl3r_tpu_torch.utils import cuda_build, flops
 
     # f32 stays f32: no TF32 in the f32 matmuls and convs (heads, renderer).
@@ -291,20 +518,29 @@ def main():
     log(f"kernel composite_fwd, dense cloud (2 views 256^2, 131072 Gaussians, {live} live pairs, "
         f"{res_dense['alpha_saturated']:.3f} of pixels at alpha > 0.99, up to {res_dense['n_done_max']} windows): "
         f"agrees with the plain version, max err {res_dense['max_abs_err']:.3g}")
+    gen = torch.Generator(dev).manual_seed(11)
+    n_tiles = dense.starts.numel()
+    cot = [torch.randn(*shape, generator=gen, device=dev) for shape in ((n_tiles, 256, 3), (n_tiles, 256), (n_tiles, 256))]
+    bwd_dense = check_composite_bwd(dense, 2048, *cot)
+    log(f"kernel composite_bwd, dense cloud, seeded cotangents: agrees with the plain version, max err "
+        f"{bwd_dense['max_abs_err']:.3g} ({bwd_dense['max_rel_err']:.3g} of its column's largest gradient), "
+        f"{bwd_dense['pairs_with_grad']} pairs with a gradient of {bwd_dense['walked']} walked, up to "
+        f"{bwd_dense['n_done_max']} windows; {bwd_dense['zero_mismatch']} values 0 in one version only, "
+        f"at most {bwd_dense['zero_mismatch_max']:.3g}")
 
-    # -- main path -----------------------------------------------------------
+    # -- serving path ----------------------------------------------------------
     hw = (256, 256)
     render_kwargs = dict(max_tiles_per_gaussian=8, max_per_tile=2048, pair_cap_per_gaussian=2)
     t0 = time.perf_counter()
     model = Styl3rModel(sh_degree=0, backbone_dtype=torch.bfloat16, head_trunk_dtype=torch.bfloat16,
-                        device=dev, seed=0)
+                        device=dev, seed=0).cast_dtypes()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"model: {n_params:,} parameters (bf16 backbone + stylizer and DPT trunks), "
+    log(f"model: {n_params:,} parameters (bf16 backbone + stylizer and DPT trunks, stored in bf16 for serving), "
         f"built in {time.perf_counter() - t0:.1f} s")
     if n_params != 1_043_732_697:
         raise AssertionError(f"parameter count {n_params} is not the full-width model's")
 
-    composite.launches = 0
+    composite.launches = composite.backward_launches = 0
     with torch.inference_mode():
         for i, seed in enumerate((0, 1, 2)):
             batch = example_batch(seed, dev)
@@ -320,17 +556,16 @@ def main():
                 raise AssertionError(f"scene {seed}: compositor launches {composite.launches}, expected {i + 1}")
             log(f"scene {seed}: color mean {float(out.color.mean()):.4f}, alpha max {float(out.alpha.max()):.4f}, "
                 f"live pairs {live} of {slots} slots, compositor launches {composite.launches}")
-    launches = {"composite_fwd": composite.launches}
-    for name, n in launches.items():
-        if n == 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+    launches = {"serve": {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}}
+    if launches["serve"]["composite_fwd"] == 0:
+        raise AssertionError("kernel composite_fwd was not launched on the serving path")
 
     with torch.inference_mode():
         res_main = check_composite(main_path_inputs(gaussians, batch, hw, render_kwargs), 2048)
-    log(f"kernel composite_fwd, main path's own inputs: agrees with the plain version, "
+    log(f"kernel composite_fwd, serving path's own inputs: agrees with the plain version, "
         f"max err {res_main['max_abs_err']:.3g}")
 
-    # -- timing: 10 warm forwards, encoder and render split --------------------
+    # -- serving timing: 10 warm forwards, encoder and render split ----------
     from styl3r_tpu_torch.models.decoder import render_gaussians
 
     enc_ms, ren_ms = [], []
@@ -354,33 +589,102 @@ def main():
     log(f"main path: {1e3 / step_ms:.3f} scenes/s, {step_ms:.2f} ms/scene (encoder "
         f"{statistics.median(enc_ms):.2f} ms, render {statistics.median(ren_ms):.2f} ms; median of 10), "
         f"{util['tflops']:.1f} TFLOP/s = MFU {util['mfu']:.4f} of 989 TFLOP/s bf16 [{card}]")
+    del model, gaussians, out, g
+    torch.cuda.empty_cache()
 
-    # -- kernel times: device time from the profiler, after the main path's
+    # -- training: full width, f32 master weights, bf16 compute ---------------
+    train_kwargs = dict(max_tiles_per_gaussian=8, max_per_tile=2048, pair_cap_per_gaussian=4)
+    model = Styl3rModel(sh_degree=0, backbone_dtype=torch.bfloat16, head_trunk_dtype=torch.bfloat16,
+                        device=dev, seed=0)
+    scratch_init_heads(model)
+    if {p.dtype for p in model.parameters()} != {torch.float32}:
+        raise AssertionError("a training model must hold f32 parameters")
+    train_batch = example_batch(4, dev, b=2, targets=True)
+
+    # The backward kernel on the stage-1 path's own inputs (its first step,
+    # dropout aside) and MSE cotangents.
+    with torch.no_grad():
+        g = model.predict_gaussians(train_batch._replace(style_image=train_batch.context_images[:, 0]))
+        train_inputs = main_path_inputs(g, train_batch, hw, train_kwargs)
+        bwd_main = check_composite_bwd(train_inputs, 2048, *mse_cotangents(train_inputs, 2048, train_batch.target_images))
+    log(f"kernel composite_bwd, stage-1 training path's own inputs ({int(train_inputs.live_pairs)} live pairs, "
+        f"2 fused 256^2 views) and MSE cotangents: agrees with the plain version, max err "
+        f"{bwd_main['max_abs_err']:.3g} ({bwd_main['max_rel_err']:.3g} of its column's largest gradient), "
+        f"{bwd_main['pairs_with_grad']} pairs with a gradient of {bwd_main['walked']} walked, up to "
+        f"{bwd_main['n_done_max']} windows; {bwd_main['zero_mismatch']} values 0 in one version only, "
+        f"at most {bwd_main['zero_mismatch_max']:.3g}")
+    del g, train_inputs
+
+    # Stage 2 starts again from the scratch-initialized weights: stage 1's
+    # steps on random weights move the geometry out of view, and stage 2's
+    # frozen geometry would then keep its render nearly empty. The copy is
+    # on the host, out of the stages' peak device memory.
+    scratch_state = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
+    stage1 = train_phase(model, train_batch, hw, train_kwargs, card, stage=1)
+    launches["train_stage1"] = {"composite_fwd": stage1["fwd"], "composite_bwd": stage1["bwd"]}
+    model.load_state_dict(scratch_state)
+    del scratch_state
+    gc.collect()  # stage 1's optimizer state
+    torch.cuda.empty_cache()
+    stage2 = train_phase(model, train_batch, hw, train_kwargs, card, stage=2)
+    launches["train_stage2"] = {"composite_fwd": stage2["fwd"], "composite_bwd": stage2["bwd"]}
+    for kernel in ("composite_fwd", "composite_bwd"):
+        if not any(v[kernel] for k, v in launches.items() if k.startswith("train")):
+            raise AssertionError(f"kernel {kernel} was not launched on the training path")
+    del model
+    torch.cuda.empty_cache()
+
+    # -- kernel times: device time from the profiler, after the paths'
     # timing, which the profiler's attached tracing would slow down ---------
-    for what, res in (("dense cloud", res_dense), ("main path's own inputs", res_main)):
+    for what, res in (("dense cloud", res_dense), ("serving path's own inputs", res_main)):
         composite_device_ms(res)
         log(f"kernel composite_fwd, {what}: {res['ms']:.4f} ms on the device, {res['call_ms']:.4f} ms a call "
+            f"(CUDA events, median of 20), plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.5f} ms "
+            f"({res['bound_by']}, {res['evals']} pixel-pair evaluations) [{card}]")
+    for what, res in (("dense cloud", bwd_dense), ("training path's own inputs", bwd_main)):
+        composite_bwd_device_ms(res)
+        log(f"kernel composite_bwd, {what}: {res['ms']:.4f} ms on the device, {res['call_ms']:.4f} ms a call "
             f"(CUDA events, median of 20), plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.5f} ms "
             f"({res['bound_by']}, {res['evals']} pixel-pair evaluations) [{card}]")
 
     reference_phase(card)
 
-    kernels = [{
-        "name": "composite_fwd",
-        "route": "cuda",
-        "source": "styl3r_tpu_torch/csrc/composite_fwd.cu",
-        "replaces": "styl3r_tpu/ops/rasterizer/pallas_kernel.py:151",
-        "launches": launches["composite_fwd"],
-        "max_abs_err": max(res_dense["max_abs_err"], res_main["max_abs_err"]),
-        "ms": res_main["ms"],
-        "call_ms": res_main["call_ms"],
-        "plain_ms": res_main["plain_ms"],
-        "bound_ms": res_main["bound_ms"],
-        "bound_by": res_main["bound_by"],
-        "library_ms": None,
-        "dense_cloud": {k: res_dense[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "evals")},
-    }]
-    print(json.dumps({"kernels": kernels, "card": card}), flush=True)
+    def numbers(res):
+        return {k: res[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "evals")}
+
+    def count(kernel):
+        return {path: v[kernel] for path, v in launches.items()}
+
+    kernels = [
+        {
+            "name": "composite_fwd",
+            "route": "cuda",
+            "source": "styl3r_tpu_torch/csrc/composite_fwd.cu",
+            "replaces": "styl3r_tpu/ops/rasterizer/pallas_kernel.py:151",
+            "launches": sum(count("composite_fwd").values()),
+            "launches_by_path": count("composite_fwd"),
+            "max_abs_err": max(res_dense["max_abs_err"], res_main["max_abs_err"]),
+            **{k: res_main[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None,
+            "dense_cloud": numbers(res_dense),
+        },
+        {
+            "name": "composite_bwd",
+            "route": "cuda",
+            "source": "styl3r_tpu_torch/csrc/composite_bwd.cu",
+            "replaces": "styl3r_tpu/ops/rasterizer/pallas_backward.py:48",
+            "launches": sum(count("composite_bwd").values()),
+            "launches_by_path": count("composite_bwd"),
+            "max_abs_err": max(bwd_dense["max_abs_err"], bwd_main["max_abs_err"]),
+            "max_rel_err": max(bwd_dense["max_rel_err"], bwd_main["max_rel_err"]),
+            **{k: bwd_main[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None,
+            "dense_cloud": numbers(bwd_dense),
+        },
+    ]
+    training = {f"stage{i}": {k: st[k] for k in ("ms", "examples_per_s", "peak_gib", "live_pairs")}
+                for i, st in ((1, stage1), (2, stage2))}
+    print(json.dumps({"kernels": kernels, "training": training, "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -99,7 +99,7 @@ def main():
     hw = (256, 256)
     render_kwargs = dict(max_tiles_per_gaussian=8, max_per_tile=2048, pair_cap_per_gaussian=2)
     model = Styl3rModel(sh_degree=0, backbone_dtype=torch.bfloat16, head_trunk_dtype=torch.bfloat16,
-                        device=dev, seed=0)
+                        device=dev, seed=0).cast_dtypes()  # bf16 storage for serving
     batch = chip_smoke.example_batch(0, dev)
     with torch.inference_mode():
         for _ in range(3):

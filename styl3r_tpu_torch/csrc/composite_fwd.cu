@@ -18,6 +18,14 @@
 // broadcast shared-memory reads; every thread keeps its running
 // transmittance in a register.
 //
+// Transmittance below the smallest normal f32 is flushed to 0. With
+// round-to-nearest, a denormal T times (1 - alpha) can round back to itself
+// (1.4e-45 * 0.7 is 1.4e-45), so a pair-by-pair product could stay far above
+// the true one, where the TPU kernel's log-space product underflows to 0.
+// The backward rebuilds T by dividing by each window's product clamped at
+// 1e-12, and would blow such a stuck T up by 1e12 a window (measured: grads
+// of 1e11 on the dense test cloud before this flush).
+//
 // Layout: attrs are pair-major (n_pairs, 12) f32 rows
 // [mx, my, conic a, b, c, opacity, r, g, b, depth, pad, pad], 48 bytes, read
 // as three float4s. Outputs: color (n_tiles, 256, 3), depth, alpha, t_final
@@ -35,6 +43,7 @@ constexpr int kVec = kAttr / 4;         // float4s per pair row
 constexpr float kMinAlpha = 1.0f / 255.0f;
 constexpr float kMaxAlpha = 0.99f;
 constexpr float kTransEps = 1e-4f;
+constexpr float kMinNormal = 1.17549435e-38f;  // FLT_MIN
 
 __global__ void __launch_bounds__(kPixels) composite_fwd_kernel(
     const float4* __restrict__ attrs, const int* __restrict__ starts,
@@ -87,6 +96,7 @@ __global__ void __launch_bounds__(kPixels) composite_fwd_kernel(
       b += weight * a[8];
       d += weight * a[9];
       trans *= 1.0f - al;
+      if (trans < kMinNormal) trans = 0.0f;
     }
     ++w;
     // Tile-level early exit once every pixel is saturated; the barrier also

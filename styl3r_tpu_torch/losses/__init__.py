@@ -1,0 +1,15 @@
+from .basic import mse_loss
+from .lpips import LPIPSVgg16, convert_lpips_state
+from .style import calc_mean_std, identity_loss, style_loss
+from .vgg import VGG19Features, imagenet_normalize
+
+__all__ = [
+    "mse_loss",
+    "LPIPSVgg16",
+    "convert_lpips_state",
+    "calc_mean_std",
+    "identity_loss",
+    "style_loss",
+    "VGG19Features",
+    "imagenet_normalize",
+]

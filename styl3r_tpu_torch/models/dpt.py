@@ -9,9 +9,14 @@ a linear + pixel shuffle for the TPU; here they are `F.interpolate` and
 `nn.ConvTranspose2d`, as in the reference.
 
 Precision: with a trunk dtype (bf16 on the card) the trunk, the first head
-conv and the image merger run in it; the final convs and expm1 run in f32.
-The head classes convert those submodules with `cast_trunk()`; every
-forward casts its input to the dtype of the weights it meets next.
+conv and the image merger compute in it; the final convs and expm1 run in
+f32. The weights stay f32 and are cast at use (`trunk_dtype`, as flax's
+`dtype=`), unless serving stores the trunk in its compute dtype with
+`cast_trunk()`.
+
+Training: the gs_params tower's dropout (rate 0.1, after the conv3x3's
+ReLU) is live in training mode and draws its mask from the
+torch.Generator the forward is given.
 """
 
 from __future__ import annotations
@@ -22,6 +27,20 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch import Tensor
+
+from .precision import compute_in
+
+GS_DROPOUT = 0.1  # gs_params tower dropout (reference dpt_block.py)
+
+
+def dropout(x: Tensor, p: float, training: bool, generator: Optional[torch.Generator]) -> Tensor:
+    """Inverted dropout with its mask drawn from `generator` (nn.Dropout
+    takes none): zero with probability p, scale the rest by 1 / (1 - p).
+    The identity outside training."""
+    if not training or p == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def upsample2x(x: Tensor) -> Tensor:
@@ -73,8 +92,10 @@ class DPTTrunk(nn.Module):
         layer_dims: Sequence[int] = (96, 192, 384, 768),
         feature_dim: int = 256,
         patch_size: int = 16,
+        compute_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.hooks = tuple(hooks)
         self.patch_size = patch_size
         ld = layer_dims
@@ -99,8 +120,16 @@ class DPTTrunk(nn.Module):
             setattr(self.scratch, f"refinenet{i}", FeatureFusionBlock(feature_dim, has_skip=i < 4))
 
     @property
-    def dtype(self) -> torch.dtype:
+    def weight_dtype(self) -> torch.dtype:
         return self.scratch.layer1_rn.weight.dtype
+
+    @property
+    def dtype(self) -> torch.dtype:
+        """The dtype the trunk computes in."""
+        return self.compute_dtype or self.weight_dtype
+
+    def precision(self, device_type: str):
+        return compute_in(self.compute_dtype, self.weight_dtype, device_type)
 
     def forward(self, tokens: List[Tensor], image_size: Tuple[int, int]) -> Tensor:
         h, w = image_size
@@ -148,10 +177,11 @@ class DPTPts3dHead(nn.Module):
         layer_dims: Sequence[int] = (96, 192, 384, 768),
         patch_size: int = 16,
         pts3d_bound: Optional[float] = None,
+        trunk_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
         self.pts3d_bound = pts3d_bound
-        self.dpt = DPTTrunk(hook_dims, hooks, layer_dims, feature_dim, patch_size)
+        self.dpt = DPTTrunk(hook_dims, hooks, layer_dims, feature_dim, patch_size, trunk_dtype)
         self.dpt.head = nn.ModuleDict(
             {
                 "0": nn.Conv2d(feature_dim, feature_dim // 2, 3, padding=1),
@@ -167,7 +197,8 @@ class DPTPts3dHead(nn.Module):
 
     def forward(self, tokens: List[Tensor], image_size: Tuple[int, int]) -> Tensor:
         head = self.dpt.head
-        x = head["0"](self.dpt(tokens, image_size))
+        with self.dpt.precision(tokens[0].device.type):
+            x = head["0"](self.dpt(tokens, image_size))
         x = upsample2x(x).to(head["2"].weight.dtype)
         x = head["4"](F.relu(head["2"](x)))
         return reg_dense_pts3d(_nhwc(x), bound=self.pts3d_bound)
@@ -176,7 +207,7 @@ class DPTPts3dHead(nn.Module):
 class GSParamsHead(nn.Module):
     """Shared body of the 'dpt_gs' and 'dpt_gs_sh' heads: trunk, 2x upsample,
     optional conv7x7 image merger, then the gs_params tower conv3x3 -> relu ->
-    (dropout, identity in eval) -> conv1x1 (reference indices 0 and 4)."""
+    dropout -> conv1x1 (reference indices 0 and 4)."""
 
     def __init__(
         self,
@@ -187,9 +218,10 @@ class GSParamsHead(nn.Module):
         hooks: Sequence[int] = (0, 6, 9, 12),
         layer_dims: Sequence[int] = (96, 192, 384, 768),
         patch_size: int = 16,
+        trunk_dtype: Optional[torch.dtype] = None,
     ):
         super().__init__()
-        self.dpt = DPTTrunk(hook_dims, hooks, layer_dims, feature_dim, patch_size)
+        self.dpt = DPTTrunk(hook_dims, hooks, layer_dims, feature_dim, patch_size, trunk_dtype)
         self.dpt.head = nn.ModuleDict(
             {
                 "0": nn.Conv2d(feature_dim, feature_dim, 3, padding=1, bias=False),
@@ -209,14 +241,16 @@ class GSParamsHead(nn.Module):
             self.dpt.input_merger.to(dtype)
 
     def _forward(
-        self, tokens: List[Tensor], image_size: Tuple[int, int], images: Optional[Tensor]
+        self, tokens: List[Tensor], image_size: Tuple[int, int], images: Optional[Tensor],
+        generator: Optional[torch.Generator],
     ) -> Tensor:
-        x = upsample2x(self.dpt(tokens, image_size))
-        if images is not None:
-            merger = self.dpt.input_merger
-            x = x + merger(images.permute(0, 3, 1, 2).to(merger[0].weight.dtype))
-        head = self.dpt.head
-        x = F.relu(head["0"](x.to(head["0"].weight.dtype)))
+        dpt, head = self.dpt, self.dpt.head
+        with dpt.precision(tokens[0].device.type):
+            x = upsample2x(dpt(tokens, image_size))
+            if images is not None:
+                x = x + dpt.input_merger(images.permute(0, 3, 1, 2).to(dpt.dtype))
+            x = F.relu(head["0"](x.to(dpt.dtype)))
+        x = dropout(x, GS_DROPOUT, self.training, generator)
         return _nhwc(head["4"](x.to(head["4"].weight.dtype)))
 
 
@@ -227,9 +261,10 @@ class DPTGSHead(GSParamsHead):
         super().__init__(hook_dims, out_channels, with_merger=True, **kwargs)
 
     def forward(
-        self, tokens: List[Tensor], images: Tensor, image_size: Tuple[int, int]
+        self, tokens: List[Tensor], images: Tensor, image_size: Tuple[int, int],
+        generator: Optional[torch.Generator] = None,
     ) -> Tensor:
-        return self._forward(tokens, image_size, images)
+        return self._forward(tokens, image_size, images, generator)
 
 
 class DPTGSSHHead(GSParamsHead):
@@ -238,5 +273,8 @@ class DPTGSSHHead(GSParamsHead):
     def __init__(self, hook_dims: Sequence[int], out_channels: int, **kwargs):
         super().__init__(hook_dims, out_channels, with_merger=False, **kwargs)
 
-    def forward(self, tokens: List[Tensor], image_size: Tuple[int, int]) -> Tensor:
-        return self._forward(tokens, image_size, None)
+    def forward(
+        self, tokens: List[Tensor], image_size: Tuple[int, int],
+        generator: Optional[torch.Generator] = None,
+    ) -> Tensor:
+        return self._forward(tokens, image_size, None, generator)

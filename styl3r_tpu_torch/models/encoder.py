@@ -18,6 +18,7 @@ from ..geometry.gaussians import Gaussians
 from .adapter import d_sh, map_pdf_to_opacity, raw_gaussian_channels, unified_gaussian_adapter
 from .croco import MultiViewCrocoBackbone, TokenStylizer
 from .dpt import DPTGSHead, DPTGSSHHead, DPTPts3dHead
+from .precision import compute_in
 
 
 class Styl3rEncoder(nn.Module):
@@ -25,8 +26,10 @@ class Styl3rEncoder(nn.Module):
     Appearance branch: token stylizer -> dpt_gs_sh head. The channel groups
     concat into the unified Gaussian adapter.
 
-    `backbone_dtype` and `head_trunk_dtype` are applied by `cast_dtypes()`
-    (the model calls it after initializing weights in f32)."""
+    `backbone_dtype` and `head_trunk_dtype` are compute dtypes, as in flax:
+    the weights stay f32 and are cast at use (models/precision.py), which
+    training needs. Serving may store them in those dtypes with
+    `cast_dtypes()`, as bench.py does."""
 
     def __init__(
         self,
@@ -69,6 +72,7 @@ class Styl3rEncoder(nn.Module):
             feature_dim=head_feature_dim,
             layer_dims=head_layer_dims,
             patch_size=patch_size,
+            trunk_dtype=head_trunk_dtype,
         )
         self.downstream_head1 = DPTPts3dHead(last_dim=head_last_dim, pts3d_bound=pts3d_bound, **head_dims)
         self.downstream_head2 = DPTPts3dHead(last_dim=head_last_dim, pts3d_bound=pts3d_bound, **head_dims)
@@ -84,6 +88,8 @@ class Styl3rEncoder(nn.Module):
         )
 
     def cast_dtypes(self) -> None:
+        """Store the backbone, the stylizer and the DPT trunks in their
+        compute dtypes (serving only: training keeps f32 weights)."""
         self.backbone.to(self.backbone_dtype)
         self.token_stylizer.to(self.backbone_dtype)
         if self.head_trunk_dtype is not None:
@@ -98,15 +104,18 @@ class Styl3rEncoder(nn.Module):
         global_step: int = 0,
         return_aux: bool = False,
         transpose_maps: bool = False,
+        generator: Optional[torch.Generator] = None,
     ) -> Gaussians | Tuple[Gaussians, Dict[str, Tensor]]:
         """context_images: (b, v, h, w, 3) in [-1, 1]; context_intrinsics:
         (b, v, 3, 3); style_image: (b, hs, ws, 3) in [-1, 1].
         transpose_maps: portrait mode; the dense maps are transposed back
-        (h/w swap) before the adapter. Returns Gaussians with g = v*h*w."""
+        (h/w swap) before the adapter. generator: the dropout masks' source
+        in training mode. Returns Gaussians with g = v*h*w."""
         b, v, h, w, _ = context_images.shape
 
-        enc_feat, enc_pos, dec_feat = self.backbone(context_images, context_intrinsics)
-        sty_feat = self.token_stylizer(style_image, enc_feat, enc_pos)
+        with compute_in(self.backbone_dtype, self.backbone.dtype, context_images.device.type):
+            enc_feat, enc_pos, dec_feat = self.backbone(context_images, context_intrinsics)
+            sty_feat = self.token_stylizer(style_image, enc_feat, enc_pos)
 
         dec0 = [t[:, 0].float() for t in dec_feat]
         decr = [t[:, 1:].reshape(b * (v - 1), *t.shape[2:]).float() for t in dec_feat]
@@ -116,14 +125,14 @@ class Styl3rEncoder(nn.Module):
         pts_all = torch.cat([pts0[:, None], ptsr], dim=1)  # (b, v, h, w, 3)
 
         imgs = context_images.float()
-        gs0 = self.gaussian_param_head(dec0, imgs[:, 0], (h, w))
+        gs0 = self.gaussian_param_head(dec0, imgs[:, 0], (h, w), generator)
         gsr = self.gaussian_param_head2(
-            decr, imgs[:, 1:].reshape(b * (v - 1), h, w, 3), (h, w)
+            decr, imgs[:, 1:].reshape(b * (v - 1), h, w, 3), (h, w), generator
         )
         gs_struct = torch.cat([gs0[:, None], gsr.reshape(b, v - 1, h, w, -1)], dim=1)
 
         sty_flat = [t.reshape(b * v, *t.shape[2:]).float() for t in sty_feat]
-        gs_appear = self.gaussian_appearance_head(sty_flat, (h, w)).reshape(b, v, h, w, -1)
+        gs_appear = self.gaussian_appearance_head(sty_flat, (h, w), generator).reshape(b, v, h, w, -1)
 
         raw = torch.cat([gs_struct, gs_appear], dim=-1)
         if transpose_maps:

@@ -62,10 +62,16 @@ def transpose_intrinsics(k: Tensor) -> Tensor:
 class Styl3rModel(nn.Module):
     """Encoder + splatting decoder.
 
-    Weights are drawn on `device` the way flax's defaults draw them, from a
-    torch.Generator seeded with `seed`, then the backbone/stylizer and DPT
-    trunks are cast to their dtypes. Load real weights with
-    `load_state_dict` (see utils/convert.py::from_jax_params)."""
+    Weights are drawn in f32 on `device` the way flax's defaults draw them,
+    from a torch.Generator seeded with `seed`, and stay f32: `backbone_dtype`
+    and `head_trunk_dtype` are compute dtypes, as in flax. Serving may store
+    the backbone/stylizer and DPT trunks in those dtypes with
+    `cast_dtypes()`. Load real weights with `load_state_dict` (see
+    utils/convert.py::from_jax_params).
+
+    The model starts in eval mode; training calls `.train()`, which turns on
+    the gs towers' dropout, drawn from the `generator` the forward is
+    given."""
 
     def __init__(
         self,
@@ -83,8 +89,13 @@ class Styl3rModel(nn.Module):
             )
         generator = torch.Generator(self.device).manual_seed(seed)
         init_like_flax_(self.encoder, generator)
-        self.encoder.cast_dtypes()
         self.eval()
+
+    def cast_dtypes(self) -> "Styl3rModel":
+        """For serving: store the backbone/stylizer and DPT trunks in their
+        compute dtypes, as bench.py does. A model that trains keeps f32."""
+        self.encoder.cast_dtypes()
+        return self
 
     def predict_gaussians(
         self,
@@ -92,10 +103,12 @@ class Styl3rModel(nn.Module):
         global_step: int = 0,
         return_aux: bool = False,
         portrait: bool = False,
+        generator: Optional[torch.Generator] = None,
     ):
         """With `portrait` (whole-batch portrait scenes, h > w) the encoder
         runs on the transposed inputs with swapped intrinsics and its dense
-        maps transpose back before the adapter."""
+        maps transpose back before the adapter. `generator` feeds dropout in
+        training mode."""
         context = normalize_images(batch.context_images)
         style = normalize_images(batch.style_image)
         intrinsics = batch.context_intrinsics
@@ -106,6 +119,7 @@ class Styl3rModel(nn.Module):
         return self.encoder(
             context, intrinsics, style,
             global_step=global_step, return_aux=return_aux, transpose_maps=portrait,
+            generator=generator,
         )
 
     def forward(
@@ -115,12 +129,15 @@ class Styl3rModel(nn.Module):
         global_step: int = 0,
         return_aux: bool = False,
         portrait: bool = False,
+        generator: Optional[torch.Generator] = None,
         **render_kwargs,
     ):
         """Predict + render into the batch's target cameras. Returns
         (gaussians, DecoderOutput), plus the encoder's aux dict with
         return_aux."""
-        out = self.predict_gaussians(batch, global_step, return_aux=return_aux, portrait=portrait)
+        out = self.predict_gaussians(
+            batch, global_step, return_aux=return_aux, portrait=portrait, generator=generator
+        )
         gaussians, aux = out if return_aux else (out, None)
         output = render_gaussians(
             gaussians,

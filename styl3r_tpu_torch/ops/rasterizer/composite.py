@@ -1,6 +1,7 @@
-"""Per-tile alpha compositing: the CUDA kernel's wrapper and its plain
-PyTorch version (counterpart of styl3r_tpu/ops/rasterizer/pallas_kernel.py,
-forward half).
+"""Per-tile alpha compositing and its gradient: the CUDA kernels' wrappers
+and their plain PyTorch versions (counterpart of
+styl3r_tpu/ops/rasterizer/pallas_kernel.py, pallas_backward.py and
+render.py::composite_pallas_diff).
 
 `pack_attrs` gathers per-pair attributes in sorted order, pair-major
 (n_pairs, 12) f32, so a thread reads one pair's 48 contiguous bytes (the
@@ -11,6 +12,11 @@ JAX package packs attribute-major for the TPU's 128-lane DMA windows).
 each tile's pair range in 128-pair windows aligned to global multiples of
 128 and stop a tile once all its pixels have transmittance <= 1e-4, so they
 return the same n_done as the TPU kernel.
+
+`composite_backward` (csrc/composite_bwd.cu, or `composite_backward_plain`
+on the CPU) replays those windows in reverse and returns per-pair gradients
+in the layout of `attrs`. `composite_tiles_diff` ties both together as a
+torch.autograd.Function.
 """
 
 from __future__ import annotations
@@ -28,10 +34,18 @@ P = TILE * TILE  # pixels per tile
 WINDOW = 128  # pairs per window
 N_ATTR = 12  # floats per packed pair row
 A_MX, A_MY, A_CA, A_CB, A_CC, A_OP, A_R, A_G, A_B, A_D = range(10)
+N_GRAD = A_D + 1  # gradient columns the backward writes; the pad stays 0
 T_EPS = 1e-4  # tile early-exit transmittance
+# Transmittance below the smallest normal f32 is flushed to 0, in the kernel
+# and here (see csrc/composite_fwd.cu): a denormal T can get stuck in a
+# product and the backward's window-level reconstruction would amplify it.
+T_MIN = torch.finfo(torch.float32).tiny
+MIN_ALPHA = 1.0 / 255.0
+MAX_ALPHA = 0.99
 
-# Launches of the CUDA kernel since the count was last set to 0.
-launches = 0
+# Launches of the CUDA kernels since the counts were last set to 0.
+launches = 0  # composite_fwd
+backward_launches = 0  # composite_bwd
 
 
 class CompositeOutput(NamedTuple):
@@ -73,9 +87,10 @@ def composite_tiles_plain(
     max_per_tile: int,
     n_views: int = 1,
 ) -> CompositeOutput:
-    """All tiles at once, window by window, with the kernel's masks and its
-    tile-level exit rule. Inside a window the transmittance is a cumprod
-    over the pairs (the kernel multiplies sequentially)."""
+    """All tiles at once, window by window, with the kernel's masks, its
+    tile-level exit rule and its flush of denormal transmittance. Inside a
+    window the transmittance is a cumprod over the pairs (the kernel
+    multiplies sequentially)."""
     gy, gx = grid
     tiles_per_view = gy * gx
     n_tiles = n_views * tiles_per_view
@@ -109,9 +124,9 @@ def composite_tiles_plain(
         dx = px - a[..., A_MX]
         dy = py - a[..., A_MY]
         power = -0.5 * (a[..., A_CA] * dx * dx + a[..., A_CC] * dy * dy) - a[..., A_CB] * dx * dy
-        alpha = torch.clamp(a[..., A_OP] * torch.exp(torch.clamp(power, max=0.0)), max=0.99)
+        alpha = torch.clamp(a[..., A_OP] * torch.exp(torch.clamp(power, max=0.0)), max=MAX_ALPHA)
         alpha = torch.where(
-            (power > 0) | (alpha < 1.0 / 255.0) | ~live[:, None, :],
+            (power > 0) | (alpha < MIN_ALPHA) | ~live[:, None, :],
             torch.zeros_like(alpha), alpha,
         )
         cp = torch.cumprod(1.0 - alpha, dim=2)  # (T, P, W)
@@ -119,6 +134,7 @@ def composite_tiles_plain(
         weight = alpha * excl * trans[..., None]
         acc = acc + torch.einsum("tpw,twc->tpc", weight, a[:, 0, :, A_R : A_D + 1])
         trans = trans * cp[..., -1]
+        trans = torch.where(trans < T_MIN, torch.zeros_like(trans), trans)
         n_done = n_done + active.int()
 
     bg = background.float().reshape(n_views, 3)[view]  # (T, 3)
@@ -131,24 +147,122 @@ def composite_tiles_plain(
     )
 
 
-_kernel = None
+def composite_backward_plain(
+    attrs: Tensor,
+    starts: Tensor,
+    counts: Tensor,
+    n_done: Tensor,
+    t_final: Tensor,
+    dcolor: Tensor,
+    ddepth: Tensor,
+    dalpha: Tensor,
+    grid: Tuple[int, int],
+    n_views: int = 1,
+) -> Tensor:
+    """The backward kernel's function, all walked tiles at once, window by
+    window from n_done - 1 down to 0 (pallas_backward.py::_backward_kernel).
+
+    Each window rebuilds its entry transmittance as T / max(prod(1 - alpha),
+    1e-12) and T_i from a log-space cumsum, as the TPU kernel does with its
+    scan matmul; where a window attenuates by more than 1e12 this is not the
+    exact gradient, and the port keeps the reference's numbers. `dalpha` is
+    the folded dL/dalpha - dL/dcolor . background. Returns (n_pairs, 12) f32
+    gradients in the layout of `attrs`; pairs no window reached, or outside
+    every tile's clamped range, stay exactly 0."""
+    gy, gx = grid
+    tiles_per_view = gy * gx
+    n_tiles = n_views * tiles_per_view
+    n_pairs = attrs.shape[0]
+    dev = attrs.device
+    grad = torch.zeros(n_pairs, N_ATTR, device=dev)
+    if n_tiles == 0 or n_pairs == 0:
+        return grad
+    starts = starts.long()
+    ends = starts + counts.long()
+    base = (starts // WINDOW) * WINDOW
+    n_done = n_done.long()
+
+    tv = torch.arange(n_tiles, device=dev) % tiles_per_view
+    pix = torch.arange(P, device=dev)
+    px = ((tv % gx)[:, None] * TILE + pix % TILE).float()[:, :, None]  # (T, P, 1)
+    py = ((tv // gx)[:, None] * TILE + pix // TILE).float()[:, :, None]
+    lane = torch.arange(WINDOW, device=dev)
+    t_cur = t_final.float().clone()
+    s_q = torch.zeros(n_tiles, P, device=dev)  # suffix of weight * q behind the window
+
+    for w in range(int(n_done.max()) - 1, -1, -1):
+        act = torch.nonzero(w < n_done).squeeze(1)  # tiles that walked window w
+        gidx = base[act, None] + w * WINDOW + lane  # (A, W)
+        in_range = (gidx >= starts[act, None]) & (gidx < ends[act, None])
+        a = attrs[gidx.clamp(0, n_pairs - 1)][:, None]  # (A, 1, W, 12)
+        ca, cb, cc = a[..., A_CA], a[..., A_CB], a[..., A_CC]
+        dx = px[act] - a[..., A_MX]  # (A, P, W)
+        dy = py[act] - a[..., A_MY]
+        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        g_exp = torch.exp(torch.clamp(power, max=0.0))
+        alpha_raw = a[..., A_OP] * g_exp
+        alpha = torch.clamp(alpha_raw, max=MAX_ALPHA)
+        composited = (power <= 0) & (alpha >= MIN_ALPHA) & in_range[:, None, :]
+        live = composited & (alpha_raw < MAX_ALPHA)  # the 0.99 clamp has no gradient
+        alpha_fwd = torch.where(composited, alpha, torch.zeros_like(alpha))
+
+        lm = torch.log1p(-alpha_fwd)
+        cum = torch.cumsum(lm, dim=2)
+        t_ws = t_cur[act][..., None] / torch.clamp(torch.exp(cum[..., -1:]), min=1e-12)
+        t_i = t_ws * torch.exp(cum - lm)  # transmittance in front of each pair
+        weight = alpha_fwd * t_i
+
+        dc = dcolor[act].float()  # (A, P, 3)
+        dd = ddepth[act].float()[..., None]
+        q = dc[..., 0:1] * a[..., A_R] + dc[..., 1:2] * a[..., A_G] + dc[..., 2:3] * a[..., A_B] + dd * a[..., A_D]
+        prefix = torch.cumsum(weight * q, dim=2)
+        tot = prefix[..., -1:]
+        s_q_i = (tot - prefix) + s_q[act][..., None]  # strictly behind each pair
+        one_minus = torch.clamp(1.0 - alpha_fwd, min=0.01)
+        dal = t_i * q - s_q_i / one_minus + dalpha[act].float()[..., None] * (t_final[act].float()[..., None] / one_minus)
+        dal = torch.where(live, dal, torch.zeros_like(dal))
+        dpower = torch.where(live, alpha, torch.zeros_like(alpha)) * dal
+
+        rows = torch.stack([
+            ((ca * dx + cb * dy) * dpower).sum(1),
+            ((cb * dx + cc * dy) * dpower).sum(1),
+            (-0.5 * dx * dx * dpower).sum(1),
+            (-dx * dy * dpower).sum(1),
+            (-0.5 * dy * dy * dpower).sum(1),
+            (g_exp * dal).sum(1),
+            (weight * dc[..., 0:1]).sum(1),
+            (weight * dc[..., 1:2]).sum(1),
+            (weight * dc[..., 2:3]).sum(1),
+            (weight * dd).sum(1),
+        ], dim=-1)  # (A, W, 10)
+        # Tiles own disjoint pair ranges, so each pair is written once.
+        grad[gidx[in_range], :N_GRAD] = rows[in_range]
+        t_cur[act] = t_ws[..., 0]
+        s_q[act] = s_q[act] + tot[..., 0]
+    return grad
 
 
-def _kernel_fn():
-    """The C entry point, built and bound at first use."""
-    global _kernel
-    if _kernel is None:
-        fn = cuda_build.load("composite_fwd").composite_fwd
-        fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_kernels = {}
+
+# The C entry points: (pointer arguments, int arguments), then the stream.
+_SIGNATURES = {"composite_fwd": (9, 5), "composite_bwd": (9, 4)}
+
+
+def _kernel_fn(name: str):
+    """The C entry point `name`, built and bound at first use."""
+    if name not in _kernels:
+        fn = getattr(cuda_build.load(name), name)
+        n_ptr, n_int = _SIGNATURES[name]
+        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        _kernel = fn
-    return _kernel
+        _kernels[name] = fn
+    return _kernels[name]
 
 
-def _check(name: str, x: Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
+def _check(fn: str, name: str, x: Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
     if x.device != device or x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous():
         raise ValueError(
-            f"composite_tiles: {name} must be a contiguous {dtype} tensor of shape "
+            f"{fn}: {name} must be a contiguous {dtype} tensor of shape "
             f"{shape} on {device}; got {x.dtype} {tuple(x.shape)} on {x.device}"
             f"{'' if x.is_contiguous() else ' (not contiguous)'}"
         )
@@ -177,10 +291,11 @@ def composite_tiles(
     dev = attrs.device
     if attrs.dim() != 2:
         raise ValueError(f"composite_tiles: attrs must be (n_pairs, {N_ATTR}), got {tuple(attrs.shape)}")
-    _check("attrs", attrs, torch.float32, (attrs.shape[0], N_ATTR), dev)
-    _check("starts", starts, torch.int32, (n_tiles,), dev)
-    _check("counts", counts, torch.int32, (n_tiles,), dev)
-    _check("background", background, torch.float32, (n_views, 3), dev)
+    fn = "composite_tiles"
+    _check(fn, "attrs", attrs, torch.float32, (attrs.shape[0], N_ATTR), dev)
+    _check(fn, "starts", starts, torch.int32, (n_tiles,), dev)
+    _check(fn, "counts", counts, torch.int32, (n_tiles,), dev)
+    _check(fn, "background", background, torch.float32, (n_views, 3), dev)
 
     color = torch.empty(n_tiles, P, 3, device=dev)
     depth = torch.empty(n_tiles, P, device=dev)
@@ -188,7 +303,7 @@ def composite_tiles(
     t_final = torch.empty(n_tiles, P, device=dev)
     n_done = torch.empty(n_tiles, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):  # the kernel launches on the tensors' device
-        rc = _kernel_fn()(
+        rc = _kernel_fn("composite_fwd")(
             attrs.data_ptr(), starts.data_ptr(), counts.data_ptr(), background.data_ptr(),
             color.data_ptr(), depth.data_ptr(), alpha.data_ptr(), n_done.data_ptr(),
             t_final.data_ptr(), n_tiles, attrs.shape[0], gy * gx, gx,
@@ -199,3 +314,106 @@ def composite_tiles(
     global launches
     launches += 1
     return CompositeOutput(color, depth, alpha, n_done, t_final)
+
+
+def composite_backward(
+    attrs: Tensor,
+    starts: Tensor,
+    counts: Tensor,
+    n_done: Tensor,
+    t_final: Tensor,
+    dcolor: Tensor,
+    ddepth: Tensor,
+    dalpha: Tensor,
+    grid: Tuple[int, int],
+    n_views: int = 1,
+) -> Tensor:
+    """Per-pair gradients (n_pairs, 12) f32 of the compositor, given the
+    forward's inputs, its n_done and t_final, and the cotangents dcolor
+    (n_tiles, P, 3), ddepth (n_tiles, P) and the folded dalpha (n_tiles, P).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    if attrs.device.type == "cpu":
+        return composite_backward_plain(
+            attrs, starts, counts, n_done, t_final, dcolor, ddepth, dalpha, grid, n_views
+        )
+    if attrs.device.type != "cuda":
+        raise ValueError(f"composite_backward: unsupported device {attrs.device}")
+    gy, gx = grid
+    n_tiles = n_views * gy * gx
+    dev = attrs.device
+    if attrs.dim() != 2:
+        raise ValueError(f"composite_backward: attrs must be (n_pairs, {N_ATTR}), got {tuple(attrs.shape)}")
+    fn = "composite_backward"
+    _check(fn, "attrs", attrs, torch.float32, (attrs.shape[0], N_ATTR), dev)
+    for name, x in (("starts", starts), ("counts", counts), ("n_done", n_done)):
+        _check(fn, name, x, torch.int32, (n_tiles,), dev)
+    _check(fn, "dcolor", dcolor, torch.float32, (n_tiles, P, 3), dev)
+    for name, x in (("t_final", t_final), ("ddepth", ddepth), ("dalpha", dalpha)):
+        _check(fn, name, x, torch.float32, (n_tiles, P), dev)
+
+    grad = torch.zeros(attrs.shape[0], N_ATTR, device=dev)
+    with torch.cuda.device(dev):
+        rc = _kernel_fn("composite_bwd")(
+            attrs.data_ptr(), starts.data_ptr(), counts.data_ptr(), n_done.data_ptr(),
+            t_final.data_ptr(), dcolor.data_ptr(), ddepth.data_ptr(), dalpha.data_ptr(),
+            grad.data_ptr(), n_tiles, attrs.shape[0], gy * gx, gx,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"composite_bwd kernel launch failed with CUDA error {rc}")
+    global backward_launches
+    backward_launches += 1
+    return grad
+
+
+class CompositeTiles(torch.autograd.Function):
+    """composite_tiles with composite_backward as its gradient, w.r.t.
+    attrs and the per-view backgrounds (render.py::composite_pallas_diff).
+    n_done and t_final are returned for the record and carry no gradient;
+    differentiate through alpha = 1 - t_final instead."""
+
+    @staticmethod
+    def forward(ctx, attrs, starts, counts, background, grid, max_per_tile, n_views):
+        out = composite_tiles(attrs, starts, counts, background, grid, max_per_tile, n_views)
+        ctx.save_for_backward(attrs, starts, counts, background, out.n_done, out.t_final)
+        ctx.grid, ctx.n_views = grid, n_views
+        ctx.mark_non_differentiable(out.n_done, out.t_final)
+        return tuple(out)
+
+    @staticmethod
+    def backward(ctx, dcolor, ddepth, dalpha, _n_done, _t_final):
+        attrs, starts, counts, background, n_done, t_final = ctx.saved_tensors
+        n_views = ctx.n_views
+        n_tiles = starts.shape[0]
+        dcolor = dcolor.float().contiguous()
+        grad_attrs = grad_bg = None
+        if ctx.needs_input_grad[0]:
+            # d/dalpha_i of the T_final * bg color term is
+            # -T_final * bg / (1 - alpha_i): fold it into the dalpha channel.
+            bg_tile = background.float().reshape(n_views, 3).repeat_interleave(n_tiles // n_views, dim=0)
+            da_eff = dalpha.float() - torch.einsum("tpc,tc->tp", dcolor, bg_tile)
+            grad_attrs = composite_backward(
+                attrs, starts, counts, n_done, t_final, dcolor, ddepth.float().contiguous(),
+                da_eff.contiguous(), ctx.grid, n_views,
+            )
+        if ctx.needs_input_grad[3]:
+            per_tile = torch.einsum("tpc,tp->tc", dcolor, t_final)
+            grad_bg = per_tile.reshape(n_views, -1, 3).sum(1).reshape(background.shape).to(background.dtype)
+        return grad_attrs, None, None, grad_bg, None, None, None
+
+
+def composite_tiles_diff(
+    attrs: Tensor,
+    starts: Tensor,
+    counts: Tensor,
+    background: Tensor,
+    grid: Tuple[int, int],
+    max_per_tile: int,
+    n_views: int = 1,
+) -> CompositeOutput:
+    """composite_tiles, differentiable w.r.t. attrs and background. Without
+    a gradient to record (inference), it is composite_tiles itself."""
+    if not (torch.is_grad_enabled() and (attrs.requires_grad or background.requires_grad)):
+        return composite_tiles(attrs, starts, counts, background, grid, max_per_tile, n_views)
+    return CompositeOutput(*CompositeTiles.apply(attrs, starts, counts, background, grid, max_per_tile, n_views))

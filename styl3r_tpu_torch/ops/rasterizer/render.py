@@ -1,5 +1,5 @@
-"""Tile-based Gaussian splatting renderer (counterpart of
-styl3r_tpu/ops/rasterizer/render.py), forward only.
+"""Differentiable tile-based Gaussian splatting renderer (counterpart of
+styl3r_tpu/ops/rasterizer/render.py with impl="pallas").
 
   1. project Gaussians (EWA, project.py);
   2. bin: each Gaussian emits up to `max_tiles_per_gaussian` (tile, depth)
@@ -7,10 +7,14 @@ styl3r_tpu/ops/rasterizer/render.py), forward only.
      one stable sort of all views' pairs by a packed (tile, depth) key;
      per-tile ranges from searchsorted;
   3. composite: per 16x16 tile, front to back (composite.py: the CUDA
-     kernel, or its plain version).
+     kernel, or its plain version), with the backward kernel as its
+     gradient.
 
 All n views share one sort and one compositor launch: view i's tiles are
-offset by i * tiles_per_view.
+offset by i * tiles_per_view. Gradients reach the Gaussians and the camera
+deltas by autograd: the `pack_attrs` gather's backward is index_select's
+(an index_add_ into the per-Gaussian table; slots dropped by pair_cap get
+none), then projection, eval_sh and make_raster_camera.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import torch
 from torch import Tensor
 
 from .camera import RasterCamera
-from .composite import composite_tiles, pack_attrs
+from .composite import composite_tiles_diff, pack_attrs
 from .project import eval_sh, project_gaussians
 
 TILE = 16
@@ -260,7 +264,8 @@ def render_many(
     """Render n views in one fused pipeline (one sort, one compositor call).
 
     Runs on the tensors' device: CUDA tensors go through the compositor
-    kernel, CPU tensors through its plain PyTorch version.
+    kernels (forward and backward), CPU tensors through their plain PyTorch
+    versions.
     pair_cap: optional cap on the total sorted pair slots kept for
     compositing, lossless while live pairs <= pair_cap (see RenderOutput).
     Returns RenderOutput with (n, h, w, ...) images."""
@@ -269,7 +274,7 @@ def render_many(
         scales=scales, rotations=rotations, max_tiles_per_gaussian=max_tiles_per_gaussian,
         max_per_tile=max_per_tile, pair_cap=pair_cap,
     )
-    out = composite_tiles(
+    out = composite_tiles_diff(
         inputs.attrs, inputs.starts, inputs.counts, inputs.backgrounds,
         inputs.grid, max_per_tile, inputs.n_views,
     )

@@ -1,8 +1,8 @@
 """Weights between the JAX package's flax params and the port's modules.
 
 The port's modules carry the reference's torch key names (the ones
-styl3r_tpu/utils/checkpoint.py reads), so `from_jax_params` inverts that
-file's layout rules: linear kernels transpose, HWIO conv kernels become
+styl3r_tpu/utils/checkpoint.py reads, and torchvision's for the perceptual
+nets), so `from_jax_params` inverts that file's layout rules: linear kernels transpose, HWIO conv kernels become
 OIHW, and a PatchExpand dense becomes the ConvTranspose2d it replaces.
 PatchExpand's bias is the ConvTranspose bias tiled k*k times; the inverse
 keeps the first copy and raises if the copies differ.
@@ -15,7 +15,7 @@ initialized JAX model.
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -117,18 +117,39 @@ def _gs_head(p: Mapping, out: Dict, name: str) -> None:
         _conv(p["input_merger"], out, f"{name}.dpt.input_merger.0")
 
 
-def from_jax_params(params: Mapping, prefix: str = "encoder.") -> Dict[str, torch.Tensor]:
-    """Flax Styl3rEncoder params ({'params': ...}, arrays) -> a state dict
-    for Styl3rModel (keys under `prefix`), as CPU tensors."""
+def _perceptual(p: Mapping, out: Dict) -> None:
+    """VGG19Features / LPIPSVgg16: `convN` -> `features.N`, `linI` as is."""
+    for name, leaf in p.items():
+        if name.startswith("conv"):
+            _conv(leaf, out, f"features.{name[4:]}")
+        else:
+            out[name] = np.asarray(leaf)
+
+
+def from_jax_params(
+    params: Mapping, prefix: Optional[str] = None, model: str = "styl3r"
+) -> Dict[str, torch.Tensor]:
+    """Flax params ({'params': ...}, arrays) -> a state dict, as CPU tensors.
+
+    model "styl3r": Styl3rEncoder params -> Styl3rModel, keys under `prefix`
+    (default "encoder."); "vgg19" / "lpips": VGG19Features / LPIPSVgg16
+    params -> the port's modules of the same names (losses/)."""
     p = params["params"] if "params" in params else params
     out: Dict[str, np.ndarray] = {}
-    _croco(p["backbone"], out, "backbone")
-    _croco(p["token_stylizer"], out, "token_stylizer")
-    _pts3d_head(p["head1"], out, "downstream_head1")
-    _pts3d_head(p["head2"], out, "downstream_head2")
-    _gs_head(p["gaussian_param_head"], out, "gaussian_param_head")
-    _gs_head(p["gaussian_param_head2"], out, "gaussian_param_head2")
-    _gs_head(p["gaussian_appearance_head"], out, "gaussian_appearance_head")
+    if model in ("vgg19", "lpips"):
+        _perceptual(p, out)
+    elif model == "styl3r":
+        prefix = "encoder." if prefix is None else prefix
+        _croco(p["backbone"], out, "backbone")
+        _croco(p["token_stylizer"], out, "token_stylizer")
+        _pts3d_head(p["head1"], out, "downstream_head1")
+        _pts3d_head(p["head2"], out, "downstream_head2")
+        _gs_head(p["gaussian_param_head"], out, "gaussian_param_head")
+        _gs_head(p["gaussian_param_head2"], out, "gaussian_param_head2")
+        _gs_head(p["gaussian_appearance_head"], out, "gaussian_appearance_head")
+    else:
+        raise ValueError(f"unknown model {model!r}")
+    prefix = prefix or ""
     return {
         prefix + k: torch.from_numpy(np.ascontiguousarray(np.asarray(v, dtype=np.float32)))
         for k, v in out.items()

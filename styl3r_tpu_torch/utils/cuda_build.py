@@ -25,7 +25,7 @@ CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
 # Every kernel source under csrc/, by name.
-KERNELS = ("composite_fwd",)
+KERNELS = ("composite_fwd", "composite_bwd")
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
