@@ -10,7 +10,8 @@ fails:
      at once;
   3. kernels: holds each kernel against its plain PyTorch version on a dense
      saturating Gaussian cloud at the main path's scale (the backward with
-     cotangents from a seeded generator);
+     cotangents from a seeded generator, and two of its calls bitwise
+     equal); prints the windows each tile walked and the backward's blocks;
   4. serving path: the full-width model (ViT-L 24x1024 encoders, 12x768
      decoders, random weights from a seed, bf16 backbone/stylizer and DPT
      trunks stored in bf16) serves three 2-view 256^2 scenes through
@@ -18,18 +19,20 @@ fails:
      once a scene; then it is held against its plain version on the path's
      own inputs, and 10 warm forwards are timed;
   5. training, stage 1: the full-width model with f32 master weights, bf16
-     compute and scratch_init_heads; the backward kernel is held against its
-     plain version on the path's own inputs and MSE cotangents; then 2 warm
-     and 5 timed steps of make_train_step (MSE, make_optimizer) on b = 2
-     2-view 256^2 scenes, each of which launches each compositor kernel once
-     and reaches the geometry heads;
+     compute and scratch_init_heads; both kernels are held against their
+     plain versions on the path's own inputs (the backward with MSE
+     cotangents); then 2 warm and 5 timed steps of make_train_step (MSE,
+     make_optimizer) on b = 2 2-view 256^2 scenes, each of which launches
+     each compositor kernel once; the warm steps' gradients reach the
+     geometry heads;
   6. training, stage 2: the same model, back at its scratch-initialized
      weights, and batch, make_stage2_optimizer and style 10 + identity with
      VGG19 at random weights; every step launches
      each kernel twice, leaves the frozen parameters bitwise unchanged and,
      from the second step, changes the stylizer and the appearance head;
-  7. kernel times: each kernel's device time (torch.profiler), call time and
-     plain version's time (CUDA events), beside its bound;
+  7. kernel times: each kernel's device time (torch.profiler, summed over
+     the backward's two launches a call), call time and plain version's time
+     (CUDA events), beside its bound;
   8. reference: a tiny-width model's Gaussians on the card agree with the
      same model's on the CPU (whose agreement with the JAX package the CPU
      tests show).
@@ -95,10 +98,12 @@ def cuda_ms(fn, reps):
     return statistics.median(times)
 
 
-def kernel_device_ms(fn, reps, kernel_name):
-    """Mean device time of one launch of the CUDA kernel whose name contains
-    `kernel_name`, from torch.profiler over `reps` calls of `fn`: the
-    kernel's own time, without the host's time to call it."""
+def kernel_device_ms(fn, reps, kernel_names):
+    """Device time of one call of `fn`, summed over the CUDA kernels it
+    launches, from torch.profiler over `reps` calls: each name in
+    `kernel_names` must match kernels launched once a call. Returns the sum
+    and each kernel's mean time a call: the kernels' own time, without the
+    host's time to call them."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -106,11 +111,14 @@ def kernel_device_ms(fn, reps, kernel_name):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if kernel_name in e.key]
-    count = sum(e.count for e in hits)
-    if count != reps:
-        raise AssertionError(f"profiler saw {count} launches of {kernel_name}, expected {reps}")
-    return sum(e.self_device_time_total for e in hits) / count / 1e3
+    each = {}
+    for name in kernel_names:
+        hits = [e for e in prof.key_averages() if name in e.key]
+        count = sum(e.count for e in hits)
+        if count != reps:
+            raise AssertionError(f"profiler saw {count} launches of {name}, expected {reps}")
+        each[name] = sum(e.self_device_time_total for e in hits) / count / 1e3
+    return sum(each.values()), each
 
 
 def example_batch(seed, device, v=2, hw=256, t=1, b=1, targets=False):
@@ -193,7 +201,7 @@ def composite_device_ms(res, reps=20):
     """Adds the kernel's device time on the inputs that check_composite held."""
     from styl3r_tpu_torch.ops.rasterizer import composite
 
-    res["ms"] = kernel_device_ms(lambda: composite.composite_tiles(*res["args"]), reps, "composite_fwd_kernel")
+    res["ms"], _ = kernel_device_ms(lambda: composite.composite_tiles(*res["args"]), reps, ("composite_fwd_kernel",))
     return res
 
 
@@ -325,20 +333,33 @@ def check_composite_bwd(inputs, max_per_tile, dcolor, ddepth, dalpha, reps=20):
     evals, nbytes = composite_bwd_work(inputs, fwd.n_done)
     t_ops = evals * COMPOSITE_BWD_OPS_PER_EVAL / PEAK_F32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
+    if not torch.equal(kern, composite.composite_backward(*args)):
+        raise AssertionError("composite_bwd: two calls on the same inputs differ")
+    n_done = fwd.n_done.long()
     return dict(
         args=args, max_abs_err=err, max_rel_err=rel, call_ms=call_ms, plain_ms=plain_ms,
         bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes", evals=evals,
-        pairs_with_grad=int((plain.abs().sum(1) > 0).sum()), n_done_max=int(fwd.n_done.max()),
-        walked=int(walked.sum()), zero_mismatch=int(zero_mismatch.sum()),
+        pairs_with_grad=int((plain.abs().sum(1) > 0).sum()), n_done_max=int(n_done.max()),
+        n_done_mean=float(n_done.float().mean()), walked=int(walked.sum()), zero_mismatch=int(zero_mismatch.sum()),
         zero_mismatch_max=float(torch.where(zero_mismatch, (kern - plain).abs(), torch.zeros_like(kern)).max()),
+        # Each of the kernel's two launches has one block per (tile, window
+        # < max(n_done)); the blocks of windows not walked exit at once.
+        blocks=2 * n_done.numel() * int(n_done.max()), walked_blocks=2 * int(n_done.sum()),
     )
+
+
+def windows_line(res):
+    return (f"windows walked per tile: max {res['n_done_max']}, mean {res['n_done_mean']:.3f}; "
+            f"{res['blocks']} blocks launched in the two phases, {res['walked_blocks']} of them on walked windows")
 
 
 def composite_bwd_device_ms(res, reps=20):
     """Adds the backward kernel's device time on the inputs check_composite_bwd held."""
     from styl3r_tpu_torch.ops.rasterizer import composite
 
-    res["ms"] = kernel_device_ms(lambda: composite.composite_backward(*res["args"]), reps, "composite_bwd_kernel")
+    res["ms"], each = kernel_device_ms(lambda: composite.composite_backward(*res["args"]), reps,
+                                       ("bwd_sums_kernel", "bwd_grad_kernel"))
+    res["phase_ms"] = {"sums": each["bwd_sums_kernel"], "grad": each["bwd_grad_kernel"]}
     return res
 
 
@@ -454,10 +475,14 @@ def train_phase(model, batch, hw, render_kwargs, card, stage, reps=5, warm=2):
         if launched != (per_step, per_step):
             raise AssertionError(f"{where}: compositor launches (fwd, bwd) {launched}, expected {per_step} each")
         if stage == 1:
-            for name in geometry_heads:
+            # Held at the warm steps, whose render holds ~81 k live pairs:
+            # later, Adam's first updates on random weights move the geometry
+            # out of view (PERF.md §7), and a context view none of whose
+            # Gaussians reaches the target gives its head no gradient at all.
+            for name in geometry_heads if i < warm else ():
                 g = getattr(model.encoder, name).dpt.head["4"].weight.grad
                 if g is None or not bool((g != 0).any()):
-                    raise AssertionError(f"{where}: no gradient reached {name}")
+                    raise AssertionError(f"{where}: no gradient reached {name} ({live} live pairs)")
         else:
             for name, p in model.named_parameters():
                 if name in frozen and not torch.equal(p, frozen[name]):
@@ -526,7 +551,8 @@ def main():
         f"{bwd_dense['max_abs_err']:.3g} ({bwd_dense['max_rel_err']:.3g} of its column's largest gradient), "
         f"{bwd_dense['pairs_with_grad']} pairs with a gradient of {bwd_dense['walked']} walked, up to "
         f"{bwd_dense['n_done_max']} windows; {bwd_dense['zero_mismatch']} values 0 in one version only, "
-        f"at most {bwd_dense['zero_mismatch_max']:.3g}")
+        f"at most {bwd_dense['zero_mismatch_max']:.3g}; two calls bitwise equal")
+    log(f"kernel composite_bwd, dense cloud: {windows_line(bwd_dense)}")
 
     # -- serving path ----------------------------------------------------------
     hw = (256, 256)
@@ -607,12 +633,16 @@ def main():
         g = model.predict_gaussians(train_batch._replace(style_image=train_batch.context_images[:, 0]))
         train_inputs = main_path_inputs(g, train_batch, hw, train_kwargs)
         bwd_main = check_composite_bwd(train_inputs, 2048, *mse_cotangents(train_inputs, 2048, train_batch.target_images))
+        res_train = check_composite(train_inputs, 2048)
     log(f"kernel composite_bwd, stage-1 training path's own inputs ({int(train_inputs.live_pairs)} live pairs, "
         f"2 fused 256^2 views) and MSE cotangents: agrees with the plain version, max err "
         f"{bwd_main['max_abs_err']:.3g} ({bwd_main['max_rel_err']:.3g} of its column's largest gradient), "
         f"{bwd_main['pairs_with_grad']} pairs with a gradient of {bwd_main['walked']} walked, up to "
         f"{bwd_main['n_done_max']} windows; {bwd_main['zero_mismatch']} values 0 in one version only, "
-        f"at most {bwd_main['zero_mismatch_max']:.3g}")
+        f"at most {bwd_main['zero_mismatch_max']:.3g}; two calls bitwise equal")
+    log(f"kernel composite_bwd, stage-1 training path's own inputs: {windows_line(bwd_main)}")
+    log(f"kernel composite_fwd, stage-1 training path's own inputs: agrees with the plain version, "
+        f"max err {res_train['max_abs_err']:.3g}")
     del g, train_inputs
 
     # Stage 2 starts again from the scratch-initialized weights: stage 1's
@@ -636,21 +666,26 @@ def main():
 
     # -- kernel times: device time from the profiler, after the paths'
     # timing, which the profiler's attached tracing would slow down ---------
-    for what, res in (("dense cloud", res_dense), ("serving path's own inputs", res_main)):
+    for what, res in (("dense cloud", res_dense), ("serving path's own inputs", res_main),
+                      ("stage-1 training path's own inputs", res_train)):
         composite_device_ms(res)
         log(f"kernel composite_fwd, {what}: {res['ms']:.4f} ms on the device, {res['call_ms']:.4f} ms a call "
             f"(CUDA events, median of 20), plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.5f} ms "
             f"({res['bound_by']}, {res['evals']} pixel-pair evaluations) [{card}]")
     for what, res in (("dense cloud", bwd_dense), ("training path's own inputs", bwd_main)):
         composite_bwd_device_ms(res)
-        log(f"kernel composite_bwd, {what}: {res['ms']:.4f} ms on the device, {res['call_ms']:.4f} ms a call "
-            f"(CUDA events, median of 20), plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.5f} ms "
+        log(f"kernel composite_bwd, {what}: {res['ms']:.4f} ms on the device (window sums "
+            f"{res['phase_ms']['sums']:.4f} + gradients {res['phase_ms']['grad']:.4f}), {res['call_ms']:.4f} ms a "
+            f"call (CUDA events, median of 20), plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.5f} ms "
             f"({res['bound_by']}, {res['evals']} pixel-pair evaluations) [{card}]")
 
     reference_phase(card)
 
     def numbers(res):
         return {k: res[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "evals")}
+
+    def windows(res):
+        return {k: res[k] for k in ("n_done_max", "n_done_mean", "blocks", "walked_blocks")}
 
     def count(kernel):
         return {path: v[kernel] for path, v in launches.items()}
@@ -663,10 +698,11 @@ def main():
             "replaces": "styl3r_tpu/ops/rasterizer/pallas_kernel.py:151",
             "launches": sum(count("composite_fwd").values()),
             "launches_by_path": count("composite_fwd"),
-            "max_abs_err": max(res_dense["max_abs_err"], res_main["max_abs_err"]),
+            "max_abs_err": max(res_dense["max_abs_err"], res_main["max_abs_err"], res_train["max_abs_err"]),
             **{k: res_main[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
             "dense_cloud": numbers(res_dense),
+            "train_inputs": numbers(res_train),
         },
         {
             "name": "composite_bwd",
@@ -679,7 +715,9 @@ def main():
             "max_rel_err": max(bwd_dense["max_rel_err"], bwd_main["max_rel_err"]),
             **{k: bwd_main[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
-            "dense_cloud": numbers(bwd_dense),
+            "phase_ms": bwd_main["phase_ms"],
+            "windows": windows(bwd_main),
+            "dense_cloud": {**numbers(bwd_dense), "phase_ms": bwd_dense["phase_ms"], "windows": windows(bwd_dense)},
         },
     ]
     training = {f"stage{i}": {k: st[k] for k in ("ms", "examples_per_s", "peak_gib", "live_pairs")}

@@ -14,9 +14,10 @@ each tile's pair range in 128-pair windows aligned to global multiples of
 return the same n_done as the TPU kernel.
 
 `composite_backward` (csrc/composite_bwd.cu, or `composite_backward_plain`
-on the CPU) replays those windows in reverse and returns per-pair gradients
-in the layout of `attrs`. `composite_tiles_diff` ties both together as a
-torch.autograd.Function.
+on the CPU) replays those windows and returns per-pair gradients in the
+layout of `attrs`: first each window's per-pixel sums, then the chain of
+windows per pixel, then each window's gradients. `composite_tiles_diff`
+ties both together as a torch.autograd.Function.
 """
 
 from __future__ import annotations
@@ -78,6 +79,16 @@ def pack_attrs(
     return table.index_select(0, sorted_gidx.long())
 
 
+def _pixel_coords(n_tiles: int, grid: Tuple[int, int], dev) -> Tuple[Tensor, Tensor]:
+    """Each tile's pixel x and y in its view, (n_tiles, P, 1) f32 each."""
+    gy, gx = grid
+    tv = torch.arange(n_tiles, device=dev) % (gy * gx)
+    pix = torch.arange(P, device=dev)
+    px = ((tv % gx)[:, None] * TILE + pix % TILE).float()[:, :, None]  # (T, P, 1)
+    py = ((tv // gx)[:, None] * TILE + pix // TILE).float()[:, :, None]
+    return px, py
+
+
 def composite_tiles_plain(
     attrs: Tensor,
     starts: Tensor,
@@ -101,12 +112,8 @@ def composite_tiles_plain(
     base = (starts // WINDOW) * WINDOW
     n_windows = torch.clamp((ends - base + WINDOW - 1) // WINDOW, max=max_windows(max_per_tile))
 
-    t = torch.arange(n_tiles, device=dev)
-    view = t // tiles_per_view
-    tv = t % tiles_per_view
-    pix = torch.arange(P, device=dev)
-    px = ((tv % gx)[:, None] * TILE + pix % TILE).float()[:, :, None]  # (T, P, 1)
-    py = ((tv // gx)[:, None] * TILE + pix // TILE).float()[:, :, None]
+    view = torch.arange(n_tiles, device=dev) // tiles_per_view
+    px, py = _pixel_coords(n_tiles, grid, dev)
     lane = torch.arange(WINDOW, device=dev)
 
     acc = torch.zeros(n_tiles, P, 4, device=dev)
@@ -147,6 +154,78 @@ def composite_tiles_plain(
     )
 
 
+class _WindowEval(NamedTuple):
+    """One window w of the tiles that walked it, every pixel against every
+    pair slot: (A, P, W) per-evaluation tensors, A the active tiles."""
+    act: Tensor  # (A,) tile indices
+    gidx: Tensor  # (A, W) pair indices
+    in_range: Tensor  # (A, W)
+    a: Tensor  # (A, 1, W, 12) pair rows
+    dx: Tensor
+    dy: Tensor
+    g_exp: Tensor
+    alpha: Tensor  # clamped at 0.99
+    live: Tensor
+    alpha_fwd: Tensor  # the forward's alpha, 0 where not composited
+    lm: Tensor  # log1p(-alpha_fwd)
+    cum: Tensor  # inclusive cumsum of lm over the window
+    q: Tensor  # <dcolor, rgb> + ddepth * depth
+    dc: Tensor  # (A, P, 3)
+    dd: Tensor  # (A, P, 1)
+
+
+def _window_eval(attrs, starts, ends, base, n_done, dcolor, ddepth, px, py, w: int) -> _WindowEval:
+    n_pairs = attrs.shape[0]
+    act = torch.nonzero(w < n_done).squeeze(1)
+    gidx = base[act, None] + w * WINDOW + torch.arange(WINDOW, device=attrs.device)
+    in_range = (gidx >= starts[act, None]) & (gidx < ends[act, None])
+    a = attrs[gidx.clamp(0, n_pairs - 1)][:, None]
+    ca, cb, cc = a[..., A_CA], a[..., A_CB], a[..., A_CC]
+    dx = px[act] - a[..., A_MX]
+    dy = py[act] - a[..., A_MY]
+    power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+    g_exp = torch.exp(torch.clamp(power, max=0.0))
+    alpha_raw = a[..., A_OP] * g_exp
+    alpha = torch.clamp(alpha_raw, max=MAX_ALPHA)
+    composited = (power <= 0) & (alpha >= MIN_ALPHA) & in_range[:, None, :]
+    live = composited & (alpha_raw < MAX_ALPHA)  # the 0.99 clamp has no gradient
+    alpha_fwd = torch.where(composited, alpha, torch.zeros_like(alpha))
+    lm = torch.log1p(-alpha_fwd)
+    cum = torch.cumsum(lm, dim=2)
+    dc = dcolor[act].float()
+    dd = ddepth[act].float()[..., None]
+    q = dc[..., 0:1] * a[..., A_R] + dc[..., 1:2] * a[..., A_G] + dc[..., 2:3] * a[..., A_B] + dd * a[..., A_D]
+    return _WindowEval(act, gidx, in_range, a, dx, dy, g_exp, alpha, live, alpha_fwd, lm, cum, q, dc, dd)
+
+
+def window_sums_plain(
+    attrs: Tensor, starts: Tensor, counts: Tensor, n_done: Tensor, dcolor: Tensor, ddepth: Tensor,
+    grid: Tuple[int, int],
+) -> Tuple[Tensor, Tensor]:
+    """Phase 1 of the backward: per (tile, window) and pixel, L_w = the sum
+    of log1p(-alpha) over the composited pairs, and U_w = sum of alpha_j *
+    exp(sum of log1p(-alpha) over the pairs in front of j) * q_j, the
+    window's sum of weight * q divided by its entry transmittance. Two
+    (n_tiles, max(n_done), P) f32 tensors, 0 for windows not walked."""
+    n_tiles = starts.shape[0]
+    dev = attrs.device
+    n_win = int(n_done.max()) if n_tiles else 0
+    big_l = torch.zeros(n_tiles, n_win, P, device=dev)
+    big_u = torch.zeros(n_tiles, n_win, P, device=dev)
+    if attrs.shape[0] == 0:
+        return big_l, big_u
+    starts = starts.long()
+    ends = starts + counts.long()
+    base = (starts // WINDOW) * WINDOW
+    n_done = n_done.long()
+    px, py = _pixel_coords(n_tiles, grid, dev)
+    for w in range(n_win):
+        e = _window_eval(attrs, starts, ends, base, n_done, dcolor, ddepth, px, py, w)
+        big_l[e.act, w] = e.cum[..., -1]
+        big_u[e.act, w] = (e.alpha_fwd * torch.exp(e.cum - e.lm) * e.q).sum(2)
+    return big_l, big_u
+
+
 def composite_backward_plain(
     attrs: Tensor,
     starts: Tensor,
@@ -159,93 +238,82 @@ def composite_backward_plain(
     grid: Tuple[int, int],
     n_views: int = 1,
 ) -> Tensor:
-    """The backward kernel's function, all walked tiles at once, window by
-    window from n_done - 1 down to 0 (pallas_backward.py::_backward_kernel).
+    """The backward kernel's function, in the kernel's phases
+    (pallas_backward.py::_backward_kernel walks a tile's windows n_done - 1
+    down to 0 in series; the phases cut that chain):
 
-    Each window rebuilds its entry transmittance as T / max(prod(1 - alpha),
-    1e-12) and T_i from a log-space cumsum, as the TPU kernel does with its
-    scan matmul; where a window attenuates by more than 1e12 this is not the
-    exact gradient, and the port keeps the reference's numbers. `dalpha` is
-    the folded dL/dalpha - dL/dcolor . background. Returns (n_pairs, 12) f32
-    gradients in the layout of `attrs`; pairs no window reached, or outside
-    every tile's clamped range, stay exactly 0."""
-    gy, gx = grid
-    tiles_per_view = gy * gx
-    n_tiles = n_views * tiles_per_view
+      1. per (tile, window) and pixel, L_w and U_w (`window_sums_plain`);
+      2. per pixel, from the last walked window down to the first, the
+         window's entry transmittance t_ws(w) = t_ws(w + 1) / max(exp(L_w),
+         1e-12) with t_ws(n_done) = T_final, and the sum of weight * q over
+         the windows behind it, S_w = sum over v > w of t_ws(v) * U_v;
+      3. each window's gradients from its t_ws(w) and S_w, with T_i from a
+         log-space cumsum, as the TPU kernel takes it with its scan matmul.
+
+    The clamp is the reference's: where a window attenuates by more than
+    1e12 this is not the exact gradient, and the port keeps the reference's
+    numbers. `dalpha` is the folded dL/dalpha - dL/dcolor . background.
+    Returns (n_pairs, 12) f32 gradients in the layout of `attrs`; pairs no
+    window reached, or outside every tile's clamped range, stay exactly 0."""
+    n_tiles = n_views * grid[0] * grid[1]
     n_pairs = attrs.shape[0]
     dev = attrs.device
     grad = torch.zeros(n_pairs, N_ATTR, device=dev)
     if n_tiles == 0 or n_pairs == 0:
         return grad
+    n_done = n_done.long()
+    big_l, big_u = window_sums_plain(attrs, starts, counts, n_done, dcolor, ddepth, grid)
+    n_win = big_l.shape[1]
+
+    t_ws = torch.zeros(n_tiles, n_win, P, device=dev)
+    behind = torch.zeros(n_tiles, n_win, P, device=dev)
+    t = t_final.float().clone()
+    s_q = torch.zeros(n_tiles, P, device=dev)
+    for v in range(n_win - 1, -1, -1):
+        act = (v < n_done)[:, None]
+        t = torch.where(act, t / torch.clamp(torch.exp(big_l[:, v]), min=1e-12), t)
+        t_ws[:, v] = t
+        behind[:, v] = s_q
+        s_q = torch.where(act, s_q + t * big_u[:, v], s_q)
+
     starts = starts.long()
     ends = starts + counts.long()
     base = (starts // WINDOW) * WINDOW
-    n_done = n_done.long()
-
-    tv = torch.arange(n_tiles, device=dev) % tiles_per_view
-    pix = torch.arange(P, device=dev)
-    px = ((tv % gx)[:, None] * TILE + pix % TILE).float()[:, :, None]  # (T, P, 1)
-    py = ((tv // gx)[:, None] * TILE + pix // TILE).float()[:, :, None]
-    lane = torch.arange(WINDOW, device=dev)
-    t_cur = t_final.float().clone()
-    s_q = torch.zeros(n_tiles, P, device=dev)  # suffix of weight * q behind the window
-
-    for w in range(int(n_done.max()) - 1, -1, -1):
-        act = torch.nonzero(w < n_done).squeeze(1)  # tiles that walked window w
-        gidx = base[act, None] + w * WINDOW + lane  # (A, W)
-        in_range = (gidx >= starts[act, None]) & (gidx < ends[act, None])
-        a = attrs[gidx.clamp(0, n_pairs - 1)][:, None]  # (A, 1, W, 12)
+    px, py = _pixel_coords(n_tiles, grid, dev)
+    for w in range(n_win):
+        e = _window_eval(attrs, starts, ends, base, n_done, dcolor, ddepth, px, py, w)
+        t_i = t_ws[e.act, w][..., None] * torch.exp(e.cum - e.lm)  # transmittance in front of each pair
+        weight = e.alpha_fwd * t_i
+        prefix = torch.cumsum(weight * e.q, dim=2)
+        s_q_i = (prefix[..., -1:] - prefix) + behind[e.act, w][..., None]  # strictly behind each pair
+        one_minus = torch.clamp(1.0 - e.alpha_fwd, min=0.01)
+        tfin = t_final[e.act].float()[..., None]
+        dal = t_i * e.q - s_q_i / one_minus + dalpha[e.act].float()[..., None] * (tfin / one_minus)
+        dal = torch.where(e.live, dal, torch.zeros_like(dal))
+        dpower = torch.where(e.live, e.alpha, torch.zeros_like(e.alpha)) * dal
+        a, dx, dy = e.a, e.dx, e.dy
         ca, cb, cc = a[..., A_CA], a[..., A_CB], a[..., A_CC]
-        dx = px[act] - a[..., A_MX]  # (A, P, W)
-        dy = py[act] - a[..., A_MY]
-        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
-        g_exp = torch.exp(torch.clamp(power, max=0.0))
-        alpha_raw = a[..., A_OP] * g_exp
-        alpha = torch.clamp(alpha_raw, max=MAX_ALPHA)
-        composited = (power <= 0) & (alpha >= MIN_ALPHA) & in_range[:, None, :]
-        live = composited & (alpha_raw < MAX_ALPHA)  # the 0.99 clamp has no gradient
-        alpha_fwd = torch.where(composited, alpha, torch.zeros_like(alpha))
-
-        lm = torch.log1p(-alpha_fwd)
-        cum = torch.cumsum(lm, dim=2)
-        t_ws = t_cur[act][..., None] / torch.clamp(torch.exp(cum[..., -1:]), min=1e-12)
-        t_i = t_ws * torch.exp(cum - lm)  # transmittance in front of each pair
-        weight = alpha_fwd * t_i
-
-        dc = dcolor[act].float()  # (A, P, 3)
-        dd = ddepth[act].float()[..., None]
-        q = dc[..., 0:1] * a[..., A_R] + dc[..., 1:2] * a[..., A_G] + dc[..., 2:3] * a[..., A_B] + dd * a[..., A_D]
-        prefix = torch.cumsum(weight * q, dim=2)
-        tot = prefix[..., -1:]
-        s_q_i = (tot - prefix) + s_q[act][..., None]  # strictly behind each pair
-        one_minus = torch.clamp(1.0 - alpha_fwd, min=0.01)
-        dal = t_i * q - s_q_i / one_minus + dalpha[act].float()[..., None] * (t_final[act].float()[..., None] / one_minus)
-        dal = torch.where(live, dal, torch.zeros_like(dal))
-        dpower = torch.where(live, alpha, torch.zeros_like(alpha)) * dal
-
         rows = torch.stack([
             ((ca * dx + cb * dy) * dpower).sum(1),
             ((cb * dx + cc * dy) * dpower).sum(1),
             (-0.5 * dx * dx * dpower).sum(1),
             (-dx * dy * dpower).sum(1),
             (-0.5 * dy * dy * dpower).sum(1),
-            (g_exp * dal).sum(1),
-            (weight * dc[..., 0:1]).sum(1),
-            (weight * dc[..., 1:2]).sum(1),
-            (weight * dc[..., 2:3]).sum(1),
-            (weight * dd).sum(1),
+            (e.g_exp * dal).sum(1),
+            (weight * e.dc[..., 0:1]).sum(1),
+            (weight * e.dc[..., 1:2]).sum(1),
+            (weight * e.dc[..., 2:3]).sum(1),
+            (weight * e.dd).sum(1),
         ], dim=-1)  # (A, W, 10)
         # Tiles own disjoint pair ranges, so each pair is written once.
-        grad[gidx[in_range], :N_GRAD] = rows[in_range]
-        t_cur[act] = t_ws[..., 0]
-        s_q[act] = s_q[act] + tot[..., 0]
+        grad[e.gidx[e.in_range], :N_GRAD] = rows[e.in_range]
     return grad
 
 
 _kernels = {}
 
 # The C entry points: (pointer arguments, int arguments), then the stream.
-_SIGNATURES = {"composite_fwd": (9, 5), "composite_bwd": (9, 4)}
+_SIGNATURES = {"composite_fwd": (9, 5), "composite_bwd": (10, 5)}
 
 
 def _kernel_fn(name: str):
@@ -332,7 +400,11 @@ def composite_backward(
     forward's inputs, its n_done and t_final, and the cotangents dcolor
     (n_tiles, P, 3), ddepth (n_tiles, P) and the folded dalpha (n_tiles, P).
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel's
+    two phases (one call, counted once in `backward_launches`). The call
+    reads max(n_done) from the device once: it sizes the grid of (tile,
+    window) blocks and the (n_tiles, max(n_done), P, 2) f32 scratch of the
+    window sums."""
     if attrs.device.type == "cpu":
         return composite_backward_plain(
             attrs, starts, counts, n_done, t_final, dcolor, ddepth, dalpha, grid, n_views
@@ -353,11 +425,13 @@ def composite_backward(
         _check(fn, name, x, torch.float32, (n_tiles, P), dev)
 
     grad = torch.zeros(attrs.shape[0], N_ATTR, device=dev)
+    n_windows = int(n_done.max()) if n_tiles else 0
+    sums = torch.empty(n_tiles, n_windows, P, 2, device=dev)
     with torch.cuda.device(dev):
         rc = _kernel_fn("composite_bwd")(
             attrs.data_ptr(), starts.data_ptr(), counts.data_ptr(), n_done.data_ptr(),
             t_final.data_ptr(), dcolor.data_ptr(), ddepth.data_ptr(), dalpha.data_ptr(),
-            grad.data_ptr(), n_tiles, attrs.shape[0], gy * gx, gx,
+            sums.data_ptr(), grad.data_ptr(), n_tiles, attrs.shape[0], gy * gx, gx, n_windows,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:

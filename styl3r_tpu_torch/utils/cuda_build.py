@@ -24,19 +24,26 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 
-# Every kernel source under csrc/, by name.
-KERNELS = ("composite_fwd", "composite_bwd")
-
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-    # No fused multiply-add contraction: the kernels then round each step as
+    "-Xptxas", "-v",
+)
+
+# Flags of one kernel, after NVCC_FLAGS; both go into the library's hash.
+KERNEL_FLAGS = {
+    # No fused multiply-add contraction: the kernel then rounds each step as
     # PyTorch's separate elementwise ops do, so a threshold test on a value
     # (alpha >= 1/255) decides the same way in the kernel and in its plain
     # version.
-    "-fmad=false",
-    "-Xptxas", "-v",
-)
+    "composite_fwd": ("-fmad=false",),
+    # Contraction, except in the values that decide the masks, which the
+    # source rounds operation by operation as composite_fwd does.
+    "composite_bwd": (),
+}
+
+# Every kernel source under csrc/, by name.
+KERNELS = tuple(KERNEL_FLAGS)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -51,8 +58,12 @@ def nvcc_path() -> str:
     return found
 
 
+def nvcc_flags(name: str) -> tuple:
+    return (*NVCC_FLAGS, *KERNEL_FLAGS[name])
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha1((CSRC / f"{name}.cu").read_bytes() + " ".join(nvcc_flags(name)).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:12]}.so"
 
 
@@ -68,7 +79,7 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, str]:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [nvcc_path(), *nvcc_flags(name), "-o", tmp, str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ), tmp, out)

@@ -352,3 +352,111 @@ def _pallas_composite_t_final(attrs, starts, counts, bg, grid, max_per_tile, n_v
         max_per_tile=max_per_tile, interpret=True, n_views=n_views,
     )
     return np.asarray(out[4])
+
+
+def _one_pass_backward(attrs, starts, counts, n_done, t_final, dcolor, ddepth, dalpha, grid, n_views=1):
+    """The backward as one walk over each tile's windows from n_done - 1
+    down to 0, carrying T and the suffix of weight * q from window to window,
+    in the TPU kernel's order: a second formulation to hold the phased plain
+    version against."""
+    gy, gx = grid
+    n_tiles = n_views * gy * gx
+    n_pairs = attrs.shape[0]
+    grad = torch.zeros(n_pairs, 12)
+    starts = starts.long()
+    ends = starts + counts.long()
+    base = (starts // 128) * 128
+    n_done = n_done.long()
+    tv = torch.arange(n_tiles) % (gy * gx)
+    pix = torch.arange(256)
+    px = ((tv % gx)[:, None] * 16 + pix % 16).float()[:, :, None]
+    py = ((tv // gx)[:, None] * 16 + pix // 16).float()[:, :, None]
+    t_cur = t_final.clone()
+    s_q = torch.zeros(n_tiles, 256)
+    for w in range(int(n_done.max()) - 1, -1, -1):
+        act = torch.nonzero(w < n_done).squeeze(1)
+        gidx = base[act, None] + w * 128 + torch.arange(128)
+        in_range = (gidx >= starts[act, None]) & (gidx < ends[act, None])
+        a = attrs[gidx.clamp(0, n_pairs - 1)][:, None]
+        ca, cb, cc = a[..., 2], a[..., 3], a[..., 4]
+        dx, dy = px[act] - a[..., 0], py[act] - a[..., 1]
+        power = -0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy
+        g_exp = torch.exp(torch.clamp(power, max=0.0))
+        alpha_raw = a[..., 5] * g_exp
+        alpha = torch.clamp(alpha_raw, max=0.99)
+        composited = (power <= 0) & (alpha >= 1 / 255) & in_range[:, None, :]
+        live = composited & (alpha_raw < 0.99)
+        alpha_fwd = torch.where(composited, alpha, torch.zeros_like(alpha))
+        lm = torch.log1p(-alpha_fwd)
+        cum = torch.cumsum(lm, dim=2)
+        t_ws = t_cur[act][..., None] / torch.clamp(torch.exp(cum[..., -1:]), min=1e-12)
+        t_i = t_ws * torch.exp(cum - lm)
+        weight = alpha_fwd * t_i
+        dc, dd = dcolor[act], ddepth[act][..., None]
+        q = dc[..., 0:1] * a[..., 6] + dc[..., 1:2] * a[..., 7] + dc[..., 2:3] * a[..., 8] + dd * a[..., 9]
+        prefix = torch.cumsum(weight * q, dim=2)
+        tot = prefix[..., -1:]
+        s_q_i = (tot - prefix) + s_q[act][..., None]
+        one_minus = torch.clamp(1.0 - alpha_fwd, min=0.01)
+        dal = t_i * q - s_q_i / one_minus + dalpha[act][..., None] * (t_final[act][..., None] / one_minus)
+        dal = torch.where(live, dal, torch.zeros_like(dal))
+        dpower = torch.where(live, alpha, torch.zeros_like(alpha)) * dal
+        rows = torch.stack([
+            ((ca * dx + cb * dy) * dpower).sum(1), ((cb * dx + cc * dy) * dpower).sum(1),
+            (-0.5 * dx * dx * dpower).sum(1), (-dx * dy * dpower).sum(1), (-0.5 * dy * dy * dpower).sum(1),
+            (g_exp * dal).sum(1), (weight * dc[..., 0:1]).sum(1), (weight * dc[..., 1:2]).sum(1),
+            (weight * dc[..., 2:3]).sum(1), (weight * dd).sum(1),
+        ], dim=-1)
+        grad[gidx[in_range], :10] = rows[in_range]
+        t_cur[act] = t_ws[..., 0]
+        s_q[act] = s_q[act] + tot[..., 0]
+    return grad
+
+
+def _clamped_windows_inputs(rng):
+    """Two tiles of one view. Tile 0 holds 420 pairs from an unaligned
+    start, opaque on its left columns and fading to nothing on its right
+    ones: the left pixels meet windows that attenuate them by more than
+    1e12 while the right ones keep the tile walking; tile 1 holds 60 pairs
+    in the window the two tiles share."""
+    counts = np.asarray([420, 60], np.int32)
+    starts = np.asarray([37, 457], np.int32)
+    n_pairs = 530
+    attrs = np.zeros((n_pairs, 12), np.float32)
+    attrs[:, 0] = rng.uniform(-2, 4, n_pairs)
+    attrs[:, 1] = rng.uniform(0, 16, n_pairs)
+    attrs[:, 2] = rng.uniform(0.05, 0.2, n_pairs)
+    attrs[:, 3] = rng.uniform(-0.002, 0.002, n_pairs)
+    attrs[:, 4] = rng.uniform(0.005, 0.02, n_pairs)
+    attrs[:, 5] = rng.uniform(0.3, 1.0, n_pairs)
+    attrs[:, 6:9] = rng.uniform(0, 1, (n_pairs, 3))
+    attrs[:, 9] = rng.uniform(1, 5, n_pairs)
+    attrs[457:, 0] += 16  # tile 1's pairs sit in tile 1
+    return _t(attrs), _t(starts, torch.int32), _t(counts, torch.int32), torch.zeros(1, 3), (1, 2), 512, 1
+
+
+def test_phased_plain_backward_matches_the_one_pass_form_where_the_clamp_fires():
+    """The plain backward in the kernel's phases (window sums, the per-pixel
+    chain of windows, the gradients) against the one-pass walk it replaced,
+    on windows whose clamp at 1e-12 fires at pixels with T_final > 0: the
+    same t_ws chain, and the suffix sums regrouped by window, so 1e-5 of
+    each gradient column's largest magnitude and the same exact zeros."""
+    rng = np.random.default_rng(23)
+    attrs, starts, counts, bg, grid, max_per_tile, n_views = _clamped_windows_inputs(rng)
+    fwd = tcomp.composite_tiles_plain(attrs, starts, counts, bg, grid, max_per_tile, n_views)
+    n_tiles = starts.shape[0]
+    dcolor = _t(rng.normal(size=(n_tiles, 256, 3)))
+    ddepth = _t(rng.normal(size=(n_tiles, 256)))
+    dalpha = _t(rng.normal(size=(n_tiles, 256)))
+    args = (attrs, starts, counts, fwd.n_done, fwd.t_final, dcolor, ddepth, dalpha, grid, n_views)
+    big_l, _ = tcomp.window_sums_plain(attrs, starts, counts, fwd.n_done, dcolor, ddepth, grid)
+    clamped = (big_l < np.log(1e-12)).any(1) & (fwd.t_final > 0)
+    assert int(fwd.n_done[0]) == 4 and int(clamped.sum()) >= 10
+    ours = tcomp.composite_backward_plain(*args)
+    theirs = _one_pass_backward(*args)
+    assert torch.equal(ours == 0, theirs == 0)
+    assert bool((ours[:37] == 0).all()) and int((ours[:, :10] != 0).any(1).sum()) > 400
+    for c in range(10):
+        scale = float(theirs[:, c].abs().max())
+        assert scale > 0
+        assert float((ours[:, c] - theirs[:, c]).abs().max()) <= 1e-5 * scale, c

@@ -193,3 +193,137 @@ def test_forward_kernel_flushes_denormal_transmittance(cuda):
     g = composite.composite_backward(*args[:3], ours.n_done, ours.t_final, *cot)
     g_ref = composite.composite_backward_plain(*args[:3], ref.n_done, ref.t_final, *cot)
     torch.testing.assert_close(g, g_ref, rtol=1e-4, atol=1e-4 * float(g_ref.abs().max()))
+
+
+def _walked(starts, counts, n_done, n_pairs):
+    """(n_pairs,) bool: pairs in their tile's clamped range inside the
+    windows its forward composited."""
+    walked = torch.zeros(n_pairs, dtype=torch.bool, device=starts.device)
+    for t in range(starts.shape[0]):
+        s0, c = int(starts[t]), int(counts[t])
+        walked[s0 : min(s0 + c, s0 // 128 * 128 + 128 * int(n_done[t]))] = True
+    return walked
+
+
+def _pipelines_agree(args, seed):
+    """The kernels' pipeline (forward kernel, then the backward kernel on
+    its n_done and t_final) against the plain one, at 1e-4 of each gradient
+    column's largest magnitude, with exact zeros on pairs no window walked.
+    Returns the kernel forward's outputs, the cotangents and both gradients."""
+    attrs, starts, counts, bg, grid, max_per_tile, n_views = args
+    fwd, fwd_ref = composite.composite_tiles(*args), composite.composite_tiles_plain(*args)
+    assert torch.equal(fwd.n_done, fwd_ref.n_done)
+    cot = _cotangents(seed, starts.shape[0], attrs.device)
+    before = composite.backward_launches
+    ours = composite.composite_backward(attrs, starts, counts, fwd.n_done, fwd.t_final, *cot, grid, n_views)
+    ref = composite.composite_backward_plain(attrs, starts, counts, fwd_ref.n_done, fwd_ref.t_final, *cot, grid, n_views)
+    torch.cuda.synchronize()
+    assert composite.backward_launches == before + 1
+    walked = _walked(starts, counts, fwd.n_done, attrs.shape[0])
+    assert bool((ours[~walked] == 0).all()) and bool((ref[~walked] == 0).all())
+    assert torch.equal(ours[:, composite.N_GRAD:], torch.zeros_like(ours[:, composite.N_GRAD:]))
+    for c in range(composite.N_GRAD):
+        scale = float(ref[:, c].abs().max())
+        assert scale > 0, c
+        assert float((ours[:, c] - ref[:, c]).abs().max()) <= 1e-4 * scale, c
+    return fwd, cot, ours, ref
+
+
+def _seventeen_windows(device):
+    """2x2 tiles: tile 0 walks all 17 windows of max_per_tile 2048 from an
+    unaligned start (its far corner is never reached, so it never exits
+    early; 78 pairs past its clamped count stay 0), tile 1 is empty at an
+    aligned start (n_done 0), tiles 2 and 3 hold 1 and 3 pairs."""
+    rng = np.random.default_rng(5)
+    starts = np.asarray([50, 2176, 2176, 2177], np.int32)
+    counts = np.asarray([2048, 0, 1, 3], np.int32)
+    n_pairs = 2190
+    attrs = np.zeros((n_pairs, 12), np.float32)
+    attrs[:, 0:2] = rng.uniform(0, 6, (n_pairs, 2))
+    attrs[:, 2] = rng.uniform(0.2, 0.5, n_pairs)
+    attrs[:, 3] = rng.uniform(-0.01, 0.01, n_pairs)
+    attrs[:, 4] = rng.uniform(0.2, 0.5, n_pairs)
+    attrs[:, 5] = rng.uniform(0.02, 0.3, n_pairs)
+    attrs[:, 6:9] = rng.uniform(0, 1, (n_pairs, 3))
+    attrs[:, 9] = rng.uniform(1, 5, n_pairs)
+    attrs[2176, 1] += 16  # tile 2's pair
+    attrs[2177:2180, 0:2] += 16  # tile 3's
+    bg = rng.uniform(0, 1, (1, 3)).astype(np.float32)
+
+    def t(x):
+        return torch.from_numpy(x).to(device)
+
+    return t(attrs), t(starts), t(counts), t(bg), (2, 2), 2048, 1
+
+
+def _unaligned_span(device):
+    """1x2 tiles: tile 0's 200 pairs start at 100 and span three windows,
+    the third shared with tile 1's 40 pairs; low opacities keep both
+    walking."""
+    rng = np.random.default_rng(6)
+    starts = np.asarray([100, 300], np.int32)
+    counts = np.asarray([200, 40], np.int32)
+    n_pairs = 360
+    attrs = np.zeros((n_pairs, 12), np.float32)
+    attrs[:, 0] = rng.uniform(-4, 20, n_pairs)
+    attrs[300:, 0] += 16
+    attrs[:, 1] = rng.uniform(-4, 20, n_pairs)
+    attrs[:, 2] = rng.uniform(0.01, 0.3, n_pairs)
+    attrs[:, 3] = rng.uniform(-0.005, 0.005, n_pairs)
+    attrs[:, 4] = rng.uniform(0.01, 0.3, n_pairs)
+    attrs[:, 5] = rng.uniform(0.05, 0.5, n_pairs)
+    attrs[:, 6:9] = rng.uniform(0, 1, (n_pairs, 3))
+    attrs[:, 9] = rng.uniform(1, 5, n_pairs)
+
+    def t(x):
+        return torch.from_numpy(x).to(device)
+
+    return t(attrs), t(starts), t(counts), torch.zeros(1, 3, device=device), (1, 2), 256, 1
+
+
+def _opaque_stack(device, n=24):
+    """n wide Gaussians of opacity 1 stacked in depth on the optical axis
+    (32^2, max_per_tile 256): windows that attenuate the centre pixels far
+    below 1e-12, where the reconstruction's clamp fires."""
+    from styl3r_tpu_torch.ops.rasterizer.camera import make_raster_camera
+    from styl3r_tpu_torch.ops.rasterizer.render import composite_inputs
+
+    hw = (32, 32)
+    means = torch.zeros(1, n, 3, device=device)
+    means[..., 2] = 2.0 + 0.05 * torch.arange(n, device=device)
+    k = torch.tensor([[[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1.0]]], device=device)
+    cams = make_raster_camera(torch.eye(4, device=device)[None], k, torch.full((1,), 0.1, device=device),
+                              torch.full((1,), 100.0, device=device), hw)
+    inputs = composite_inputs(
+        cams, means, None, torch.full((1, n, 3, 1), 0.3, device=device), torch.ones(1, n, device=device), hw,
+        scales=torch.full((1, n, 3), 0.5, device=device),
+        rotations=torch.tensor([0.0, 0.0, 0.0, 1.0], device=device).expand(1, n, 4), max_per_tile=256,
+    )
+    return inputs.attrs, inputs.starts, inputs.counts, inputs.backgrounds, inputs.grid, 256, 1
+
+
+@pytest.mark.parametrize("case", ["seventeen_windows", "unaligned_span", "opaque_stack"])
+def test_backward_pipeline_matches_plain(cuda, case):
+    args = {"seventeen_windows": _seventeen_windows, "unaligned_span": _unaligned_span,
+            "opaque_stack": _opaque_stack}[case](cuda)
+    fwd, cot, _, _ = _pipelines_agree(args, seed=4)
+    n_done = fwd.n_done.tolist()
+    if case == "seventeen_windows":
+        assert n_done == [17, 0, 1, 1]
+    elif case == "unaligned_span":
+        assert n_done == [3, 1]
+    else:
+        attrs, starts, counts, _, grid, _, _ = args
+        big_l, _ = composite.window_sums_plain(attrs, starts, counts, fwd.n_done, cot[0], cot[1], grid)
+        assert bool((big_l < np.log(1e-12)).any())  # the clamp fires
+
+
+def test_backward_kernel_is_deterministic(cuda):
+    """No atomics: two calls on the same inputs give bitwise-equal grads."""
+    attrs, starts, counts, bg, grid, max_per_tile, n_views = args = _seventeen_windows(cuda)
+    fwd = composite.composite_tiles(*args)
+    bwd = (attrs, starts, counts, fwd.n_done, fwd.t_final, *_cotangents(5, starts.shape[0], cuda), grid, n_views)
+    first = composite.composite_backward(*bwd)
+    second = composite.composite_backward(*bwd)
+    assert torch.equal(first, second)
+    assert int((first != 0).any(1).sum()) > 1000
