@@ -10,8 +10,8 @@ fails:
      at once;
   3. kernels: holds each kernel against its plain PyTorch version on a dense
      saturating Gaussian cloud at the main path's scale (the backward with
-     cotangents from a seeded generator, and two of its calls bitwise
-     equal); prints the windows each tile walked and the backward's blocks;
+     cotangents from a seeded generator; two calls of each kernel bitwise
+     equal); prints the windows each tile has in range and walked;
   4. serving path: the full-width model (ViT-L 24x1024 encoders, 12x768
      decoders, random weights from a seed, bf16 backbone/stylizer and DPT
      trunks stored in bf16) serves three 2-view 256^2 scenes through
@@ -31,8 +31,9 @@ fails:
      each kernel twice, leaves the frozen parameters bitwise unchanged and,
      from the second step, changes the stylizer and the appearance head;
   7. kernel times: each kernel's device time (torch.profiler, summed over
-     the backward's two launches a call), call time and plain version's time
-     (CUDA events), beside its bound;
+     the backward's two launches a call) and launch shape (grid, block and
+     registers a thread, from the profiler's trace of the same calls), call
+     time and plain version's time (CUDA events), beside its bound;
   8. reference: a tiny-width model's Gaussians on the card agree with the
      same model's on the CPU (whose agreement with the JAX package the CPU
      tests show).
@@ -98,27 +99,67 @@ def cuda_ms(fn, reps):
     return statistics.median(times)
 
 
-def kernel_device_ms(fn, reps, kernel_names):
+def kernel_device_ms(fn, reps, kernel_names, attempts=3):
     """Device time of one call of `fn`, summed over the CUDA kernels it
     launches, from torch.profiler over `reps` calls: each name in
-    `kernel_names` must match kernels launched once a call. Returns the sum
-    and each kernel's mean time a call: the kernels' own time, without the
-    host's time to call them."""
+    `kernel_names` must match kernels launched once a call. Returns the sum,
+    each kernel's mean time a call (the kernels' own time, without the
+    host's time to call them) and each kernel's launch shape in the same
+    calls (launch_shapes). The profiler on the card now and then records
+    fewer launches than were made; such a window is measured again, up to
+    `attempts` times."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    each = {}
+    for _ in range(attempts):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        each, lost = {}, None
+        for name in kernel_names:
+            hits = [e for e in prof.key_averages() if name in e.key]
+            count = sum(e.count for e in hits)
+            if count != reps:
+                lost = f"profiler saw {count} launches of {name}, expected {reps}"
+                break
+            each[name] = sum(e.self_device_time_total for e in hits) / count / 1e3
+        if lost is None:
+            return sum(each.values()), each, launch_shapes(prof, kernel_names)
+        log(f"{lost}; measuring again")
+    raise AssertionError(lost)
+
+
+def launch_shapes(prof, kernel_names):
+    """Each named kernel's launch as the profiler's trace recorded it:
+    {name: {"grid": [x, y, z], "block": [x, y, z], "registers": n}}, the
+    registers a thread; raises if the calls launched a kernel in more than
+    one shape."""
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    shapes = {}
     for name in kernel_names:
-        hits = [e for e in prof.key_averages() if name in e.key]
-        count = sum(e.count for e in hits)
-        if count != reps:
-            raise AssertionError(f"profiler saw {count} launches of {name}, expected {reps}")
-        each[name] = sum(e.self_device_time_total for e in hits) / count / 1e3
-    return sum(each.values()), each
+        seen = {
+            (tuple(e["args"]["grid"]), tuple(e["args"]["block"]), e["args"]["registers per thread"])
+            for e in events if e.get("cat") == "kernel" and name in e.get("name", "")
+        }
+        if len(seen) != 1:
+            raise AssertionError(f"profiler trace: {name} launched in {len(seen)} shapes: {sorted(seen)}")
+        grid, block, regs = seen.pop()
+        shapes[name] = {"grid": list(grid), "block": list(block), "registers": regs}
+    return shapes
+
+
+def shape_text(shape):
+    blocks = shape["grid"][0] * shape["grid"][1] * shape["grid"][2]
+    return (f"{blocks} blocks (grid {'x'.join(map(str, shape['grid']))}) of "
+            f"{shape['block'][0] * shape['block'][1] * shape['block'][2]} threads, "
+            f"{shape['registers']} registers a thread")
 
 
 def example_batch(seed, device, v=2, hw=256, t=1, b=1, targets=False):
@@ -158,12 +199,28 @@ def composite_work(inputs, n_done):
     return pairs * 256, nbytes
 
 
+def window_counts(inputs, max_per_tile, n_done):
+    """The windows each tile has in range (its clamped count from its
+    aligned base, at most max_windows) and those it walked (n_done): sum,
+    mean and max over the tiles."""
+    import torch
+
+    from styl3r_tpu_torch.ops.rasterizer import composite
+
+    starts = inputs.starts.long()
+    ends = starts + inputs.counts.long()
+    in_range = torch.clamp((ends - (starts // 128) * 128 + 127) // 128, max=composite.max_windows(max_per_tile))
+    return {name: {"sum": int(x.sum()), "mean": float(x.float().mean()), "max": int(x.max())}
+            for name, x in (("in_range", in_range), ("walked", n_done.long()))}
+
+
 def check_composite(inputs, max_per_tile, reps=20):
     """Kernel vs plain on one set of compositor inputs: the largest error,
-    the median times of a kernel call and of a plain call (CUDA events), and
-    the bound. The kernel's device time is taken later (composite_device_ms),
-    after the main path's timing, because the profiler it uses stays
-    attached and slows every later launch."""
+    two kernel calls bitwise equal, the median times of a kernel call and of
+    a plain call (CUDA events), the bound, and the windows in range and
+    walked. The kernel's device time and launch shape are taken
+    later (composite_device_ms), after the main path's timing, because the
+    profiler it uses stays attached and slows every later launch."""
     import torch
 
     from styl3r_tpu_torch.ops.rasterizer import composite
@@ -171,9 +228,12 @@ def check_composite(inputs, max_per_tile, reps=20):
     args = (inputs.attrs, inputs.starts, inputs.counts, inputs.backgrounds, inputs.grid, max_per_tile, inputs.n_views)
     kern = composite.composite_tiles(*args)
     plain = composite.composite_tiles_plain(*args)
+    again = composite.composite_tiles(*args)
     torch.cuda.synchronize()
     if not torch.equal(kern.n_done, plain.n_done):
         raise AssertionError("composite_fwd: n_done differs from the plain version")
+    if not all(torch.equal(a, b) for a, b in zip(kern, again)):
+        raise AssertionError("composite_fwd: two calls on the same inputs differ")
     depth_scale = max(1.0, float(plain.depth.abs().max()))
     err = 0.0
     for name in ("color", "alpha", "t_final", "depth"):
@@ -194,14 +254,30 @@ def check_composite(inputs, max_per_tile, reps=20):
         args=args, max_abs_err=err, call_ms=call_ms, plain_ms=plain_ms, bound_ms=max(t_ops, t_bytes),
         bound_by="operations" if t_ops >= t_bytes else "bytes", evals=evals,
         n_done_max=int(plain.n_done.max()), alpha_saturated=float((plain.alpha > 0.99).float().mean()),
+        windows=window_counts(inputs, max_per_tile, plain.n_done),
     )
 
 
+def fwd_windows_line(res):
+    win = res["windows"]
+    return (f"windows a tile in range: sum {win['in_range']['sum']}, mean {win['in_range']['mean']:.3f}, max "
+            f"{win['in_range']['max']}; walked: sum {win['walked']['sum']}, mean {win['walked']['mean']:.3f}, max "
+            f"{win['walked']['max']}; two calls bitwise equal")
+
+
 def composite_device_ms(res, reps=20):
-    """Adds the kernel's device time on the inputs that check_composite held."""
+    """Adds the kernel's device time and launch shape on the inputs that
+    check_composite held, with the threads a pixel and blocks a tile that
+    shape gives."""
     from styl3r_tpu_torch.ops.rasterizer import composite
 
-    res["ms"], _ = kernel_device_ms(lambda: composite.composite_tiles(*res["args"]), reps, ("composite_fwd_kernel",))
+    res["ms"], _, shapes = kernel_device_ms(lambda: composite.composite_tiles(*res["args"]), reps,
+                                            ("composite_fwd_kernel",))
+    shape = shapes["composite_fwd_kernel"]
+    n_tiles = res["args"][1].numel()
+    blocks = shape["grid"][0] * shape["grid"][1] * shape["grid"][2]
+    threads = blocks * shape["block"][0] * shape["block"][1] * shape["block"][2]
+    res["launch"] = {**shape, "blocks_per_tile": blocks / n_tiles, "threads_per_pixel": threads / (n_tiles * composite.P)}
     return res
 
 
@@ -308,7 +384,7 @@ def check_composite_bwd(inputs, max_per_tile, dcolor, ddepth, dalpha, reps=20):
     fwd, fwd_plain = composite.composite_tiles(*fwd_args), composite.composite_tiles_plain(*fwd_args)
     cot = (dcolor.contiguous(), ddepth.contiguous(), dalpha.contiguous(), inputs.grid, inputs.n_views)
     args = (inputs.attrs, inputs.starts, inputs.counts, fwd.n_done, fwd.t_final, *cot)
-    kern = composite.composite_backward(*args)
+    kern = composite.composite_backward(*args, max_per_tile=max_per_tile)
     plain = composite.composite_backward_plain(
         inputs.attrs, inputs.starts, inputs.counts, fwd_plain.n_done, fwd_plain.t_final, *cot
     )
@@ -328,38 +404,40 @@ def check_composite_bwd(inputs, max_per_tile, dcolor, ddepth, dalpha, reps=20):
         if e > BWD_TOL * scale:
             raise AssertionError(f"composite_bwd: column {c} differs from the plain version by {e} > {BWD_TOL} * {scale}")
         err, rel = max(err, e), max(rel, e / scale if scale > 0 else 0.0)
-    call_ms = cuda_ms(lambda: composite.composite_backward(*args), reps)
+    call_ms = cuda_ms(lambda: composite.composite_backward(*args, max_per_tile=max_per_tile), reps)
     plain_ms = cuda_ms(lambda: composite.composite_backward_plain(*args), max(3, reps // 4))
     evals, nbytes = composite_bwd_work(inputs, fwd.n_done)
     t_ops = evals * COMPOSITE_BWD_OPS_PER_EVAL / PEAK_F32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES * 1e3
-    if not torch.equal(kern, composite.composite_backward(*args)):
+    if not torch.equal(kern, composite.composite_backward(*args, max_per_tile=max_per_tile)):
         raise AssertionError("composite_bwd: two calls on the same inputs differ")
     n_done = fwd.n_done.long()
     return dict(
-        args=args, max_abs_err=err, max_rel_err=rel, call_ms=call_ms, plain_ms=plain_ms,
+        args=args, max_per_tile=max_per_tile, max_abs_err=err, max_rel_err=rel, call_ms=call_ms, plain_ms=plain_ms,
         bound_ms=max(t_ops, t_bytes), bound_by="operations" if t_ops >= t_bytes else "bytes", evals=evals,
         pairs_with_grad=int((plain.abs().sum(1) > 0).sum()), n_done_max=int(n_done.max()),
         n_done_mean=float(n_done.float().mean()), walked=int(walked.sum()), zero_mismatch=int(zero_mismatch.sum()),
         zero_mismatch_max=float(torch.where(zero_mismatch, (kern - plain).abs(), torch.zeros_like(kern)).max()),
-        # Each of the kernel's two launches has one block per (tile, window
-        # < max(n_done)); the blocks of windows not walked exit at once.
-        blocks=2 * n_done.numel() * int(n_done.max()), walked_blocks=2 * int(n_done.sum()),
+        # Each phase has a block for every (tile, window) it launches; those
+        # of windows a tile walked do the work, the others exit at once.
+        walked_blocks=2 * int(n_done.sum()),
     )
 
 
 def windows_line(res):
-    return (f"windows walked per tile: max {res['n_done_max']}, mean {res['n_done_mean']:.3f}; "
-            f"{res['blocks']} blocks launched in the two phases, {res['walked_blocks']} of them on walked windows")
+    return f"windows walked per tile: max {res['n_done_max']}, mean {res['n_done_mean']:.3f}"
 
 
 def composite_bwd_device_ms(res, reps=20):
-    """Adds the backward kernel's device time on the inputs check_composite_bwd held."""
+    """Adds the backward kernel's device time and its two phases' launch
+    shapes on the inputs check_composite_bwd held."""
     from styl3r_tpu_torch.ops.rasterizer import composite
 
-    res["ms"], each = kernel_device_ms(lambda: composite.composite_backward(*res["args"]), reps,
-                                       ("bwd_sums_kernel", "bwd_grad_kernel"))
+    res["ms"], each, shapes = kernel_device_ms(
+        lambda: composite.composite_backward(*res["args"], max_per_tile=res["max_per_tile"]), reps,
+        ("bwd_sums_kernel", "bwd_grad_kernel"))
     res["phase_ms"] = {"sums": each["bwd_sums_kernel"], "grad": each["bwd_grad_kernel"]}
+    res["launch"] = {"sums": shapes["bwd_sums_kernel"], "grad": shapes["bwd_grad_kernel"]}
     return res
 
 
@@ -543,6 +621,7 @@ def main():
     log(f"kernel composite_fwd, dense cloud (2 views 256^2, 131072 Gaussians, {live} live pairs, "
         f"{res_dense['alpha_saturated']:.3f} of pixels at alpha > 0.99, up to {res_dense['n_done_max']} windows): "
         f"agrees with the plain version, max err {res_dense['max_abs_err']:.3g}")
+    log(f"kernel composite_fwd, dense cloud: {fwd_windows_line(res_dense)}")
     gen = torch.Generator(dev).manual_seed(11)
     n_tiles = dense.starts.numel()
     cot = [torch.randn(*shape, generator=gen, device=dev) for shape in ((n_tiles, 256, 3), (n_tiles, 256), (n_tiles, 256))]
@@ -589,7 +668,7 @@ def main():
     with torch.inference_mode():
         res_main = check_composite(main_path_inputs(gaussians, batch, hw, render_kwargs), 2048)
     log(f"kernel composite_fwd, serving path's own inputs: agrees with the plain version, "
-        f"max err {res_main['max_abs_err']:.3g}")
+        f"max err {res_main['max_abs_err']:.3g}; {fwd_windows_line(res_main)}")
 
     # -- serving timing: 10 warm forwards, encoder and render split ----------
     from styl3r_tpu_torch.models.decoder import render_gaussians
@@ -642,7 +721,7 @@ def main():
         f"at most {bwd_main['zero_mismatch_max']:.3g}; two calls bitwise equal")
     log(f"kernel composite_bwd, stage-1 training path's own inputs: {windows_line(bwd_main)}")
     log(f"kernel composite_fwd, stage-1 training path's own inputs: agrees with the plain version, "
-        f"max err {res_train['max_abs_err']:.3g}")
+        f"max err {res_train['max_abs_err']:.3g}; {fwd_windows_line(res_train)}")
     del g, train_inputs
 
     # Stage 2 starts again from the scratch-initialized weights: stage 1's
@@ -672,20 +751,28 @@ def main():
         log(f"kernel composite_fwd, {what}: {res['ms']:.4f} ms on the device, {res['call_ms']:.4f} ms a call "
             f"(CUDA events, median of 20), plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.5f} ms "
             f"({res['bound_by']}, {res['evals']} pixel-pair evaluations) [{card}]")
+        log(f"kernel composite_fwd, {what}: launched as {shape_text(res['launch'])} (profiler trace): "
+            f"{res['launch']['blocks_per_tile']:g} blocks a tile, {res['launch']['threads_per_pixel']:g} threads a pixel")
     for what, res in (("dense cloud", bwd_dense), ("training path's own inputs", bwd_main)):
         composite_bwd_device_ms(res)
         log(f"kernel composite_bwd, {what}: {res['ms']:.4f} ms on the device (window sums "
             f"{res['phase_ms']['sums']:.4f} + gradients {res['phase_ms']['grad']:.4f}), {res['call_ms']:.4f} ms a "
             f"call (CUDA events, median of 20), plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.5f} ms "
             f"({res['bound_by']}, {res['evals']} pixel-pair evaluations) [{card}]")
+        log(f"kernel composite_bwd, {what}: window sums launched as {shape_text(res['launch']['sums'])}, gradients "
+            f"as {shape_text(res['launch']['grad'])} (profiler trace); {res['walked_blocks']} of the blocks of both "
+            f"phases are on walked windows")
 
     reference_phase(card)
 
     def numbers(res):
         return {k: res[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "evals")}
 
+    def fwd_numbers(res):
+        return {**numbers(res), "windows": res["windows"], "launch": res["launch"]}
+
     def windows(res):
-        return {k: res[k] for k in ("n_done_max", "n_done_mean", "blocks", "walked_blocks")}
+        return {k: res[k] for k in ("n_done_max", "n_done_mean", "walked_blocks")}
 
     def count(kernel):
         return {path: v[kernel] for path, v in launches.items()}
@@ -701,8 +788,10 @@ def main():
             "max_abs_err": max(res_dense["max_abs_err"], res_main["max_abs_err"], res_train["max_abs_err"]),
             **{k: res_main[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
-            "dense_cloud": numbers(res_dense),
-            "train_inputs": numbers(res_train),
+            "windows": res_main["windows"],
+            "launch": res_main["launch"],
+            "dense_cloud": fwd_numbers(res_dense),
+            "train_inputs": fwd_numbers(res_train),
         },
         {
             "name": "composite_bwd",
@@ -717,7 +806,9 @@ def main():
             "library_ms": None,
             "phase_ms": bwd_main["phase_ms"],
             "windows": windows(bwd_main),
-            "dense_cloud": {**numbers(bwd_dense), "phase_ms": bwd_dense["phase_ms"], "windows": windows(bwd_dense)},
+            "launch": bwd_main["launch"],
+            "dense_cloud": {**numbers(bwd_dense), "phase_ms": bwd_dense["phase_ms"], "windows": windows(bwd_dense),
+                            "launch": bwd_dense["launch"]},
         },
     ]
     training = {f"stage{i}": {k: st[k] for k in ("ms", "examples_per_s", "peak_gib", "live_pairs")}

@@ -395,16 +395,19 @@ def composite_backward(
     dalpha: Tensor,
     grid: Tuple[int, int],
     n_views: int = 1,
+    *,
+    max_per_tile: int,
 ) -> Tensor:
     """Per-pair gradients (n_pairs, 12) f32 of the compositor, given the
     forward's inputs, its n_done and t_final, and the cotangents dcolor
     (n_tiles, P, 3), ddepth (n_tiles, P) and the folded dalpha (n_tiles, P).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel's
-    two phases (one call, counted once in `backward_launches`). The call
-    reads max(n_done) from the device once: it sizes the grid of (tile,
-    window) blocks and the (n_tiles, max(n_done), P, 2) f32 scratch of the
-    window sums."""
+    two phases (one call, counted once in `backward_launches`). The grid of
+    (tile, window) blocks and the (n_tiles, n_windows, P, 2) f32 scratch of
+    the window sums are sized by n_windows = max_windows(max_per_tile), the
+    bound on n_done of the forward that took this `max_per_tile`, without
+    reading the device; blocks of windows a tile did not walk exit at once."""
     if attrs.device.type == "cpu":
         return composite_backward_plain(
             attrs, starts, counts, n_done, t_final, dcolor, ddepth, dalpha, grid, n_views
@@ -425,7 +428,7 @@ def composite_backward(
         _check(fn, name, x, torch.float32, (n_tiles, P), dev)
 
     grad = torch.zeros(attrs.shape[0], N_ATTR, device=dev)
-    n_windows = int(n_done.max()) if n_tiles else 0
+    n_windows = max_windows(max_per_tile)
     sums = torch.empty(n_tiles, n_windows, P, 2, device=dev)
     with torch.cuda.device(dev):
         rc = _kernel_fn("composite_bwd")(
@@ -451,7 +454,7 @@ class CompositeTiles(torch.autograd.Function):
     def forward(ctx, attrs, starts, counts, background, grid, max_per_tile, n_views):
         out = composite_tiles(attrs, starts, counts, background, grid, max_per_tile, n_views)
         ctx.save_for_backward(attrs, starts, counts, background, out.n_done, out.t_final)
-        ctx.grid, ctx.n_views = grid, n_views
+        ctx.grid, ctx.n_views, ctx.max_per_tile = grid, n_views, max_per_tile
         ctx.mark_non_differentiable(out.n_done, out.t_final)
         return tuple(out)
 
@@ -469,7 +472,7 @@ class CompositeTiles(torch.autograd.Function):
             da_eff = dalpha.float() - torch.einsum("tpc,tc->tp", dcolor, bg_tile)
             grad_attrs = composite_backward(
                 attrs, starts, counts, n_done, t_final, dcolor, ddepth.float().contiguous(),
-                da_eff.contiguous(), ctx.grid, n_views,
+                da_eff.contiguous(), ctx.grid, n_views, max_per_tile=ctx.max_per_tile,
             )
         if ctx.needs_input_grad[3]:
             per_tile = torch.einsum("tpc,tp->tc", dcolor, t_final)

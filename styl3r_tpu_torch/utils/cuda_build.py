@@ -32,13 +32,13 @@ NVCC_FLAGS = (
 
 # Flags of one kernel, after NVCC_FLAGS; both go into the library's hash.
 KERNEL_FLAGS = {
-    # No fused multiply-add contraction: the kernel then rounds each step as
-    # PyTorch's separate elementwise ops do, so a threshold test on a value
-    # (alpha >= 1/255) decides the same way in the kernel and in its plain
-    # version.
-    "composite_fwd": ("-fmad=false",),
-    # Contraction, except in the values that decide the masks, which the
-    # source rounds operation by operation as composite_fwd does.
+    # Both contract multiply-adds, except in the values that decide the masks
+    # (power, alpha >= 1/255), which the sources round operation by operation
+    # as PyTorch's separate elementwise ops do, so a threshold test decides
+    # the same way in a kernel and in its plain version. The forward runs
+    # faster at 40 registers a thread than at the 48 ptxas picks by itself
+    # (scripts/composite_fwd_variants.py, PERF.md).
+    "composite_fwd": ("-maxrregcount=40",),
     "composite_bwd": (),
 }
 

@@ -77,6 +77,7 @@ def _port_backward(attrs, starts, counts, bg, grid, max_per_tile, n_views, dcolo
     fwd = tcomp.composite_tiles_plain(attrs, starts, counts, bg, grid, max_per_tile, n_views)
     grads = tcomp.composite_backward(
         attrs, starts, counts, fwd.n_done, fwd.t_final, _t(dcolor), _t(ddepth), _t(dalpha), grid, n_views,
+        max_per_tile=max_per_tile,
     )
     return grads, fwd.n_done
 

@@ -5,9 +5,10 @@ On a machine with a card (no JAX needed):
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: forward 1e-5 for f32 values of order 1 (the kernel multiplies
-the transmittance pair by pair where the plain version takes a cumprod per
-window, so only rounding differs; n_done must be equal). Backward 1e-4 of
+Tolerances: forward 1e-5 for f32 values of order 1 (the kernel folds each
+window's pairs in chunks of consecutive pairs, multiplied pair by pair, and
+contracts multiply-adds, where the plain version takes a cumprod per window,
+so only rounding differs; n_done must be equal). Backward 1e-4 of
 each gradient column's largest magnitude (per-pair sums over 256 pixels in
 another order, and the window-level reconstruction divides by products of
 (1 - alpha)); pairs no window walked must be exactly 0.
@@ -97,7 +98,7 @@ def test_backward_kernel_matches_plain(cuda):
     fwd = composite.composite_tiles(attrs, starts, counts, bg, grid, max_per_tile, n_views)
     args = (attrs, starts, counts, fwd.n_done, fwd.t_final, *_cotangents(0, starts.shape[0], cuda), grid, n_views)
     before = composite.backward_launches
-    ours = composite.composite_backward(*args)
+    ours = composite.composite_backward(*args, max_per_tile=max_per_tile)
     ref = composite.composite_backward_plain(*args)
     torch.cuda.synchronize()
     assert composite.backward_launches == before + 1
@@ -170,7 +171,8 @@ def test_backward_wrapper_rejects_what_the_kernel_does_not_take(cuda, bad):
     else:
         t_final = t_final.cpu()
     with pytest.raises(ValueError):
-        composite.composite_backward(attrs, starts, counts, n_done, t_final, dcolor, ddepth, dalpha, grid, n_views)
+        composite.composite_backward(attrs, starts, counts, n_done, t_final, dcolor, ddepth, dalpha, grid, n_views,
+                                     max_per_tile=max_per_tile)
 
 
 def test_forward_kernel_flushes_denormal_transmittance(cuda):
@@ -190,7 +192,7 @@ def test_forward_kernel_flushes_denormal_transmittance(cuda):
     assert torch.equal(ours.t_final, torch.zeros_like(ours.t_final))
     assert torch.equal(ref.t_final, ours.t_final)
     cot = (*_cotangents(2, 1, cuda), (1, 1), 1)
-    g = composite.composite_backward(*args[:3], ours.n_done, ours.t_final, *cot)
+    g = composite.composite_backward(*args[:3], ours.n_done, ours.t_final, *cot, max_per_tile=args[5])
     g_ref = composite.composite_backward_plain(*args[:3], ref.n_done, ref.t_final, *cot)
     torch.testing.assert_close(g, g_ref, rtol=1e-4, atol=1e-4 * float(g_ref.abs().max()))
 
@@ -215,7 +217,8 @@ def _pipelines_agree(args, seed):
     assert torch.equal(fwd.n_done, fwd_ref.n_done)
     cot = _cotangents(seed, starts.shape[0], attrs.device)
     before = composite.backward_launches
-    ours = composite.composite_backward(attrs, starts, counts, fwd.n_done, fwd.t_final, *cot, grid, n_views)
+    ours = composite.composite_backward(attrs, starts, counts, fwd.n_done, fwd.t_final, *cot, grid, n_views,
+                                        max_per_tile=max_per_tile)
     ref = composite.composite_backward_plain(attrs, starts, counts, fwd_ref.n_done, fwd_ref.t_final, *cot, grid, n_views)
     torch.cuda.synchronize()
     assert composite.backward_launches == before + 1
@@ -302,6 +305,72 @@ def _opaque_stack(device, n=24):
     return inputs.attrs, inputs.starts, inputs.counts, inputs.backgrounds, inputs.grid, 256, 1
 
 
+# Pairs of a window one thread of csrc/composite_fwd.cu takes (kWindow /
+# kChunks).
+_CHUNK = 16
+
+
+def _chunk_edges(device):
+    """1x2 tiles whose ranges start and end inside a chunk: tile 0 holds
+    pairs [CHUNK + CHUNK/4, 3 CHUNK - CHUNK/4) of window 0, so the window's
+    first chunk and the chunks after its third hold none of its pairs; tile
+    1 runs on from there into window 2, ending inside a chunk. Low opacities
+    keep both walking."""
+    rng = np.random.default_rng(8)
+    k = _CHUNK
+    starts = np.asarray([k + k // 4, 3 * k - k // 4], np.int32)
+    ends = np.asarray([3 * k - k // 4, 2 * composite.WINDOW + k + 5], np.int32)
+    n_pairs = int(ends[-1]) + 7
+    attrs = np.zeros((n_pairs, 12), np.float32)
+    attrs[:, 0] = rng.uniform(-4, 20, n_pairs)
+    attrs[starts[1]:, 0] += 16
+    attrs[:, 1] = rng.uniform(-4, 20, n_pairs)
+    attrs[:, 2] = rng.uniform(0.01, 0.3, n_pairs)
+    attrs[:, 3] = rng.uniform(-0.005, 0.005, n_pairs)
+    attrs[:, 4] = rng.uniform(0.01, 0.3, n_pairs)
+    attrs[:, 5] = rng.uniform(0.05, 0.4, n_pairs)
+    attrs[:, 6:9] = rng.uniform(0, 1, (n_pairs, 3))
+    attrs[:, 9] = rng.uniform(1, 5, n_pairs)
+    bg = rng.uniform(0, 1, (1, 3)).astype(np.float32)
+
+    def t(x):
+        return torch.from_numpy(x).to(device)
+
+    return t(attrs), t(starts), t(ends - starts), t(bg), (1, 2), 512, 1
+
+
+@pytest.mark.parametrize("case", ["seventeen_windows", "unaligned_span", "chunk_edges"])
+def test_forward_kernel_matches_plain_on_window_and_chunk_edges(cuda, case):
+    """The kernel against its plain version where ranges span many windows,
+    start unaligned, or start and end inside a chunk and leave a chunk of a
+    window empty: n_done equal, values within 1e-5 (depth within 1e-5 of its
+    scale)."""
+    args = {"seventeen_windows": _seventeen_windows, "unaligned_span": _unaligned_span,
+            "chunk_edges": _chunk_edges}[case](cuda)
+    before = composite.launches
+    ours = composite.composite_tiles(*args)
+    ref = composite.composite_tiles_plain(*args)
+    torch.cuda.synchronize()
+    assert composite.launches == before + 1
+    assert torch.equal(ours.n_done, ref.n_done)
+    assert ours.n_done.tolist() == {"seventeen_windows": [17, 0, 1, 1], "unaligned_span": [3, 1],
+                                    "chunk_edges": [1, 3]}[case]
+    for name in ("color", "alpha", "t_final"):
+        torch.testing.assert_close(getattr(ours, name), getattr(ref, name), rtol=0, atol=1e-5)
+    depth_scale = max(1.0, float(ref.depth.abs().max()))
+    torch.testing.assert_close(ours.depth, ref.depth, rtol=0, atol=1e-5 * depth_scale)
+    assert float(ref.alpha.max()) > 0.5
+
+
+def test_forward_kernel_is_deterministic(cuda):
+    """The chunk partials are folded in a fixed order: two calls on the same
+    inputs give bitwise-equal outputs."""
+    args = _seventeen_windows(cuda)
+    first, second = composite.composite_tiles(*args), composite.composite_tiles(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("case", ["seventeen_windows", "unaligned_span", "opaque_stack"])
 def test_backward_pipeline_matches_plain(cuda, case):
     args = {"seventeen_windows": _seventeen_windows, "unaligned_span": _unaligned_span,
@@ -323,7 +392,7 @@ def test_backward_kernel_is_deterministic(cuda):
     attrs, starts, counts, bg, grid, max_per_tile, n_views = args = _seventeen_windows(cuda)
     fwd = composite.composite_tiles(*args)
     bwd = (attrs, starts, counts, fwd.n_done, fwd.t_final, *_cotangents(5, starts.shape[0], cuda), grid, n_views)
-    first = composite.composite_backward(*bwd)
-    second = composite.composite_backward(*bwd)
+    first = composite.composite_backward(*bwd, max_per_tile=max_per_tile)
+    second = composite.composite_backward(*bwd, max_per_tile=max_per_tile)
     assert torch.equal(first, second)
     assert int((first != 0).any(1).sum()) > 1000

@@ -164,9 +164,10 @@ def _assert_composite_matches(ours, theirs, depth_scale=1.0):
     np.testing.assert_allclose(ours.depth.numpy(), depth, rtol=1e-5, atol=1e-5 * depth_scale)
 
 
-def test_plain_compositor_matches_pallas_interpret():
+def _random_tiles():
     """Random pair rows with unaligned, empty, multi-window and clamped
-    ranges over 2 fused views of 2x2 tiles."""
+    ranges over 2 fused views of 2x2 tiles, as numpy arrays: attrs, starts,
+    clamped counts, backgrounds, grid, max_per_tile, n_views."""
     rng = np.random.default_rng(4)
     grid, n_views, max_per_tile = (2, 2), 2, 256
     n_tiles = n_views * 4
@@ -188,7 +189,11 @@ def test_plain_compositor_matches_pallas_interpret():
     attrs[:, 6:9] = rng.uniform(0, 1, (n_pairs, 3))
     attrs[:, 9] = rng.uniform(1, 5, n_pairs)
     bg = rng.uniform(0, 1, (n_views, 3)).astype(np.float32)
-    counts_c = np.minimum(counts, max_per_tile)
+    return attrs, starts, np.minimum(counts, max_per_tile), bg, grid, max_per_tile, n_views
+
+
+def test_plain_compositor_matches_pallas_interpret():
+    attrs, starts, counts_c, bg, grid, max_per_tile, n_views = _random_tiles()
     ours = tcomp.composite_tiles(_t(attrs), _t(starts, torch.int32), _t(counts_c, torch.int32), _t(bg), grid, max_per_tile, n_views)
     theirs = _pallas_composite(attrs, starts, counts_c, bg, grid, max_per_tile, n_views)
     _assert_composite_matches(ours, theirs, depth_scale=5.0)
@@ -211,14 +216,13 @@ def _per_view(s, n):
     return {k: np.broadcast_to(v[None], (n,) + v.shape).copy() for k, v in s.items()}
 
 
-def test_dense_saturating_cloud_early_exit():
-    """Every tile walks several windows and the tile early exit fires: the
-    plain compositor's n_done and images equal the Pallas kernel's on the
-    port's own sorted attributes, and the whole render equals JAX's."""
+def _dense_saturating_cloud():
+    """A cloud sized so whole tiles saturate: it overfills the 32x32 frame of
+    2 views with 3.2-pixel Gaussians at 2 per pixel (at 256^2, scale 0.02 is
+    5 pixels). Returns the Gaussians per view, both packages' cameras and
+    the port's compositor inputs."""
     rng = np.random.default_rng(7)
     n_views, hw, max_per_tile = 2, (32, 32), 512
-    # Sized so whole tiles saturate: the cloud overfills the 32x32 frame with
-    # 3.2-pixel Gaussians at 2 per pixel (at 256^2, scale 0.02 is 5 pixels).
     s = _per_view(_dense_cloud(rng, 2048, spread=0.6, scale=0.1), n_views)
     jc, tc = _cameras(_extrinsics(n_views, 0.02), hw)
     inputs = tr.composite_inputs(
@@ -226,6 +230,15 @@ def test_dense_saturating_cloud_early_exit():
         scales=_t(s["scales"]), rotations=_t(s["rotations"]),
         max_tiles_per_gaussian=8, max_per_tile=max_per_tile, pair_cap=4 * n_views * 2048,
     )
+    return s, jc, tc, inputs
+
+
+def test_dense_saturating_cloud_early_exit():
+    """Every tile walks several windows and the tile early exit fires: the
+    plain compositor's n_done and images equal the Pallas kernel's on the
+    port's own sorted attributes, and the whole render equals JAX's."""
+    n_views, hw, max_per_tile = 2, (32, 32), 512
+    s, jc, tc, inputs = _dense_saturating_cloud()
     ours = tcomp.composite_tiles_plain(*inputs[:5], max_per_tile, inputs.n_views)
     theirs = _pallas_composite(inputs.attrs, inputs.starts, inputs.counts, inputs.backgrounds, inputs.grid, max_per_tile, n_views)
     _assert_composite_matches(ours, theirs, depth_scale=1.1)
@@ -247,6 +260,106 @@ def test_dense_saturating_cloud_early_exit():
     for name in ("color", "alpha"):
         np.testing.assert_allclose(getattr(t_img, name).numpy(), np.asarray(getattr(j_img, name)), **TOL)
     assert int(t_img.live_pairs) == int(j_img.live_pairs)
+
+
+# Pairs of a window one thread of csrc/composite_fwd.cu takes (kWindow /
+# kChunks): the kernel reduces each such run from T = 1 and folds the runs
+# into the pixel's running state in order.
+KERNEL_CHUNK = 16
+
+
+def _sequential_composite(attrs, starts, counts, background, grid, max_per_tile, n_views, chunk=None):
+    """The compositor pair by pair, as a thread per pixel would walk it: the
+    plain version's masks and exit rule, T flushed below the smallest normal
+    f32 after every pair. With `chunk`, each run of `chunk` consecutive
+    pairs of a window is reduced from (T = 1, colour = 0) and then folded
+    into the running state in order, with a flush after every fold: the
+    forward kernel's grouping."""
+    gy, gx = grid
+    n_tiles = n_views * gy * gx
+    run = chunk or tcomp.WINDOW
+    starts, ends = starts.long(), starts.long() + counts.long()
+    base = (starts // tcomp.WINDOW) * tcomp.WINDOW
+    n_windows = torch.clamp((ends - base + tcomp.WINDOW - 1) // tcomp.WINDOW, max=tcomp.max_windows(max_per_tile))
+    px, py = tcomp._pixel_coords(n_tiles, grid, attrs.device)
+    px, py = px[..., 0], py[..., 0]  # (T, P)
+    acc = torch.zeros(n_tiles, tcomp.P, 4)
+    trans = torch.ones(n_tiles, tcomp.P)
+    n_done = torch.zeros(n_tiles, dtype=torch.int32)
+    active = torch.ones(n_tiles, dtype=torch.bool)
+    for w in range(tcomp.max_windows(max_per_tile)):
+        active = active & (w < n_windows) & (trans.amax(dim=1) > tcomp.T_EPS)
+        for r in range(0, tcomp.WINDOW, run):
+            if chunk is None:  # the running state itself
+                c_acc, c_t = acc, trans
+            else:
+                c_acc, c_t = torch.zeros_like(acc), torch.ones_like(trans)
+            for j in range(r, r + run):
+                gidx = base + w * tcomp.WINDOW + j  # (T,)
+                live = active & (gidx >= starts) & (gidx < ends)
+                a = attrs[gidx.clamp(0, attrs.shape[0] - 1)][:, None, :]  # (T, 1, 12)
+                dx, dy = px - a[..., 0], py - a[..., 1]
+                power = -0.5 * (a[..., 2] * dx * dx + a[..., 4] * dy * dy) - a[..., 3] * dx * dy
+                alpha = torch.clamp(a[..., 5] * torch.exp(torch.clamp(power, max=0.0)), max=tcomp.MAX_ALPHA)
+                alpha = torch.where((power > 0) | (alpha < tcomp.MIN_ALPHA) | ~live[:, None], 0.0, alpha)
+                c_acc = c_acc + (alpha * c_t)[..., None] * a[..., 6:10]
+                c_t = c_t * (1.0 - alpha)
+                c_t = torch.where(c_t < tcomp.T_MIN, 0.0, c_t)
+            if chunk is None:
+                acc, trans = c_acc, c_t
+            else:
+                acc = acc + trans[..., None] * c_acc
+                trans = trans * c_t
+                trans = torch.where(trans < tcomp.T_MIN, 0.0, trans)
+        n_done = n_done + active.int()
+    bg = background.float().reshape(n_views, 3)[torch.arange(n_tiles) // (gy * gx)]
+    return tcomp.CompositeOutput(acc[..., :3] + trans[..., None] * bg[:, None, :], acc[..., 3], 1.0 - trans, n_done, trans)
+
+
+def _chunk_edges():
+    """1x2 tiles whose ranges start and end inside a kernel chunk: tile 0
+    holds pairs [CHUNK + CHUNK/4, 3 CHUNK - CHUNK/4) of window 0, tile 1
+    runs on from there into window 2. Low opacities keep both walking."""
+    rng = np.random.default_rng(8)
+    k = KERNEL_CHUNK
+    starts = np.asarray([k + k // 4, 3 * k - k // 4], np.int32)
+    ends = np.asarray([3 * k - k // 4, 2 * tcomp.WINDOW + k + 5], np.int32)
+    n_pairs = int(ends[-1]) + 7
+    attrs = np.zeros((n_pairs, 12), np.float32)
+    attrs[:, 0] = rng.uniform(-4, 20, n_pairs)
+    attrs[starts[1]:, 0] += 16
+    attrs[:, 1] = rng.uniform(-4, 20, n_pairs)
+    attrs[:, 2] = rng.uniform(0.01, 0.3, n_pairs)
+    attrs[:, 3] = rng.uniform(-0.005, 0.005, n_pairs)
+    attrs[:, 4] = rng.uniform(0.01, 0.3, n_pairs)
+    attrs[:, 5] = rng.uniform(0.05, 0.4, n_pairs)
+    attrs[:, 6:9] = rng.uniform(0, 1, (n_pairs, 3))
+    attrs[:, 9] = rng.uniform(1, 5, n_pairs)
+    bg = rng.uniform(0, 1, (1, 3)).astype(np.float32)
+    return attrs, starts, ends - starts, bg, (1, 2), 512, 1
+
+
+@pytest.mark.parametrize("case", ["random_tiles", "dense_saturating_cloud", "chunk_edges"])
+def test_chunked_plain_compositor_matches_sequential(case):
+    """composite_tiles_plain (a cumprod a window) against the pair-by-pair
+    form and against the forward kernel's grouping (runs of KERNEL_CHUNK
+    pairs folded in order), both test-local: the same n_done, and values
+    within 1e-6 (depth within 1e-6 of its scale); only rounding differs, so
+    the kernel's chunks leave the exit rule where the plain version has it."""
+    if case == "dense_saturating_cloud":
+        inputs = _dense_saturating_cloud()[3]
+        args = (*inputs[:5], 512, inputs.n_views)
+    else:
+        attrs, starts, counts, bg, grid, max_per_tile, n_views = _random_tiles() if case == "random_tiles" else _chunk_edges()
+        args = (_t(attrs), _t(starts, torch.int32), _t(counts, torch.int32), _t(bg), grid, max_per_tile, n_views)
+    ours = tcomp.composite_tiles_plain(*args)
+    assert int(ours.n_done.max()) >= 3
+    for other in (_sequential_composite(*args), _sequential_composite(*args, chunk=KERNEL_CHUNK)):
+        np.testing.assert_array_equal(ours.n_done.numpy(), other.n_done.numpy())
+        for name in ("color", "alpha", "t_final"):
+            np.testing.assert_allclose(getattr(ours, name).numpy(), getattr(other, name).numpy(), rtol=0, atol=1e-6)
+        depth_scale = float(other.depth.abs().max())
+        np.testing.assert_allclose(ours.depth.numpy(), other.depth.numpy(), rtol=0, atol=1e-6 * depth_scale)
 
 
 @pytest.mark.parametrize("pair_cap", [None, 2000], ids=["no_cap", "pair_cap"])
