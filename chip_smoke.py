@@ -18,29 +18,42 @@ fails:
      Styl3rModel.forward; the forward compositor must have been launched
      once a scene; then it is held against its plain version on the path's
      own inputs, and 10 warm forwards are timed;
-  5. training, stage 1: the full-width model with f32 master weights, bf16
+  5. inference path: the same model through the inference entry points'
+     flow, styl3r_tpu_torch.infer.cli.run_scene_inference, on a synthetic
+     scene (2 context views, 3 targets, a style image, all 256^2): two
+     predicts, 100 pose-alignment steps (each launching the forward and the
+     backward compositor once), two renders and a 60-frame video (six
+     launches); every output file is checked, and the phases timed with
+     CUDA events. Both kernels are then held against their plain versions
+     on the alignment's own inputs, the forward also on the video's, and
+     the camera deltas' gradients of the whole render, kernels against
+     plain versions; then two 4-view predicts + renders, and pose recovery
+     on a synthetic cloud of 131,072 Gaussians (the error falls below 0.3x
+     of its start);
+  6. training, stage 1: the full-width model with f32 master weights, bf16
      compute and scratch_init_heads; both kernels are held against their
      plain versions on the path's own inputs (the backward with MSE
      cotangents); then 2 warm and 5 timed steps of make_train_step (MSE,
      make_optimizer) on b = 2 2-view 256^2 scenes, each of which launches
      each compositor kernel once; the warm steps' gradients reach the
      geometry heads;
-  6. training, stage 2: the same model, back at its scratch-initialized
+  7. training, stage 2: the same model, back at its scratch-initialized
      weights, and batch, make_stage2_optimizer and style 10 + identity with
      VGG19 at random weights; every step launches
      each kernel twice, leaves the frozen parameters bitwise unchanged and,
      from the second step, changes the stylizer and the appearance head;
-  7. kernel times: each kernel's device time (torch.profiler, summed over
+  8. kernel times: each kernel's device time (torch.profiler, summed over
      the backward's two launches a call) and launch shape (grid, block and
      registers a thread, from the profiler's trace of the same calls), call
      time and plain version's time (CUDA events), beside its bound;
-  8. reference: a tiny-width model's Gaussians on the card agree with the
+  9. reference: a tiny-width model's Gaussians on the card agree with the
      same model's on the CPU (whose agreement with the JAX package the CPU
      tests show).
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import gc
 import json
 import os
@@ -311,21 +324,22 @@ def dense_cloud_inputs(device, g=131072, n_views=2, hw=(256, 256), max_per_tile=
     )
 
 
-def main_path_inputs(gaussians, batch, hw, render_kwargs):
-    """The compositor inputs of render_gaussians for b scenes and t targets
-    each (no scale invariance, black background): a path's own."""
+def main_path_inputs(gaussians, extrinsics, intrinsics, near, far, hw, render_kwargs):
+    """The compositor inputs of render_gaussians(..., **render_kwargs) for b
+    scenes and t cameras each (no scale invariance, black background, zero
+    camera deltas; render_gaussians' defaults for the caps not given): a
+    path's own."""
     import torch
 
     from styl3r_tpu_torch.ops.rasterizer.camera import make_raster_camera
     from styl3r_tpu_torch.ops.rasterizer.render import composite_inputs
 
-    dev = batch.target_extrinsics.device
-    b, t = batch.target_extrinsics.shape[:2]
+    dev = extrinsics.device
+    b, t = extrinsics.shape[:2]
     n = b * t
     zeros = torch.zeros(n, 3, device=dev)
     cams = make_raster_camera(
-        batch.target_extrinsics.reshape(n, 4, 4), batch.target_intrinsics.reshape(n, 3, 3),
-        batch.target_near.reshape(n), batch.target_far.reshape(n), hw,
+        extrinsics.reshape(n, 4, 4), intrinsics.reshape(n, 3, 3), near.reshape(n), far.reshape(n), hw,
         cam_rot_delta=zeros, cam_trans_delta=zeros,
     )
 
@@ -333,24 +347,27 @@ def main_path_inputs(gaussians, batch, hw, render_kwargs):
         return x[:, None].expand(b, t, *x.shape[1:]).reshape(n, *x.shape[1:])
 
     g = gaussians.means.shape[1]
+    pair_cap = render_kwargs.get("pair_cap_per_gaussian", 0)
     return composite_inputs(
         cams, per_view(gaussians.means), None, per_view(gaussians.harmonics),
         per_view(gaussians.opacities), hw, zeros,
         scales=per_view(gaussians.scales), rotations=per_view(gaussians.rotations),
-        max_tiles_per_gaussian=render_kwargs["max_tiles_per_gaussian"],
-        max_per_tile=render_kwargs["max_per_tile"],
-        pair_cap=render_kwargs["pair_cap_per_gaussian"] * n * g,
+        max_tiles_per_gaussian=render_kwargs.get("max_tiles_per_gaussian", 32),
+        max_per_tile=render_kwargs.get("max_per_tile", 4096),
+        pair_cap=pair_cap * n * g if pair_cap else None,
     )
 
 
 def composite_bwd_work(inputs, n_done):
-    """(evaluations, bytes) the backward needs for these inputs: the walked
-    (pixel, pair) evaluations; each walked pair row read once, the
-    (n_pairs, 12) gradient written once, the per-pixel t_final and four
-    cotangents and the per-tile ranges read once."""
+    """(evaluations, bytes) the backward kernels need for these inputs: the
+    walked (pixel, pair) evaluations; each walked pair's row read once and
+    its gradient row written once, the per-pixel t_final and four
+    cotangents and the per-tile ranges read once. The other pairs' rows stay
+    as the wrapper's zero-fill of the gradient left them; that fill is a
+    separate launch, outside the kernels' device time and this bound."""
     evals, _ = composite_work(inputs, n_done)
     n_tiles = inputs.starts.numel()
-    nbytes = (evals // 256) * 48 + inputs.attrs.shape[0] * 48 + n_tiles * (256 * 24 + 12)
+    nbytes = 2 * (evals // 256) * 48 + n_tiles * (256 * 24 + 12)
     return evals, nbytes
 
 
@@ -490,6 +507,291 @@ def reference_phase(card):
         if err > 1e-4:
             raise AssertionError(f"reference: Gaussians' {name} differ from the CPU by {err} of their scale")
     log(f"reference: tiny model on the card vs the CPU: Gaussians within {worst:.3g} of their scale [{card}]")
+
+
+def synthetic_scene(seed=0, n_frames=6, hw=256):
+    """A scene as the inference entry points read one: n_frames frames of
+    uniform noise at hw^2, c2w poses whose camera slides 0.05 along x a
+    frame (as tests/test_data.py's chunks do), normalized intrinsics, and a
+    style image."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    images = rng.uniform(0, 1, (n_frames, hw, hw, 3)).astype(np.float32)
+    intrinsics = np.tile(np.asarray([[0.8, 0, 0.5], [0, 0.9, 0.5], [0, 0, 1]], np.float32), (n_frames, 1, 1))
+    extrinsics = np.tile(np.eye(4, dtype=np.float32), (n_frames, 1, 1))
+    extrinsics[:, 0, 3] = 0.05 * np.arange(n_frames)
+    style = rng.uniform(0, 1, (hw, hw, 3)).astype(np.float32)
+    return images, intrinsics, extrinsics, style
+
+
+@contextlib.contextmanager
+def plain_compositor():
+    """render_gaussians and its gradient through the plain versions on the
+    card's tensors: composite_tiles and composite_backward are swapped for
+    composite_tiles_plain and composite_backward_plain (no launch counted)."""
+    from styl3r_tpu_torch.ops.rasterizer import composite
+
+    saved = composite.composite_tiles, composite.composite_backward
+    composite.composite_tiles = composite.composite_tiles_plain
+    composite.composite_backward = lambda *args, max_per_tile: composite.composite_backward_plain(*args)
+    try:
+        yield
+    finally:
+        composite.composite_tiles, composite.composite_backward = saved
+
+
+def delta_grads(gaussians, extrinsics, intrinsics, near, far, images, hw, render_kwargs):
+    """Gradients of pose alignment's loss, mean((color - images)^2), w.r.t.
+    zero rotation and translation deltas of each camera."""
+    import torch
+
+    from styl3r_tpu_torch.models.decoder import render_gaussians
+
+    b, v = extrinsics.shape[:2]
+    rot = torch.zeros(b, v, 3, device=extrinsics.device, requires_grad=True)
+    trans = torch.zeros(b, v, 3, device=extrinsics.device, requires_grad=True)
+    with torch.enable_grad():
+        out = render_gaussians(gaussians, extrinsics, intrinsics, near, far, hw, cam_rot_delta=rot,
+                               cam_trans_delta=trans, **render_kwargs)
+        return torch.autograd.grad(((out.color - images) ** 2).mean(), (rot, trans))
+
+
+def inference_phase(model, card, steps=100, frames=60, size=256):
+    """The re10k entry point's flow, run_scene_inference, on the full-width
+    model: 2 context views and 3 targets of a synthetic 256^2 scene, a 256^2
+    style image, `steps` pose-alignment steps and a `frames`-frame video,
+    into a temporary directory. Each alignment step launches each kernel
+    once, each render and each 10-frame video chunk the forward once. Then
+    both kernels are held against their plain versions on the alignment's
+    own inputs (its first step: 3 fused target views of the predicted
+    Gaussians), the forward also on the first video chunk's, and the camera
+    deltas' gradients of the whole render, kernels against plain versions."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from styl3r_tpu_torch.eval.benchmarker import Benchmarker
+    from styl3r_tpu_torch.infer import cli, pipeline
+    from styl3r_tpu_torch.ops.rasterizer import composite
+    from styl3r_tpu_torch.utils.ply_export import load_ply
+
+    images, intrinsics, extrinsics, style = synthetic_scene(hw=size)
+    context, targets = [0, 5], [1, 2, 3]
+    hw = (size, size)
+    # The alignment's and the renders' inputs, recorded as the path passes them.
+    align_calls, render_calls = [], []
+    real_align, real_render = cli.align_target_poses, pipeline.InferencePipeline.render
+
+    def record_align(*args, **kwargs):
+        align_calls.append((args, kwargs))
+        return real_align(*args, **kwargs)
+
+    def record_render(self, *args, **kwargs):
+        render_calls.append((args, kwargs))
+        return real_render(self, *args, **kwargs)
+
+    bench = Benchmarker(model.device)
+    with tempfile.TemporaryDirectory() as out_dir:
+        cli.align_target_poses, pipeline.InferencePipeline.render = record_align, record_render
+        try:
+            composite.launches = composite.backward_launches = 0
+            metrics = cli.run_scene_inference(
+                model, images, intrinsics, extrinsics, context, targets, style, out_dir, image_shape=hw,
+                align_pose_steps=steps, video_frames=frames, benchmarker=bench,
+            )
+            torch.cuda.synchronize()
+            launches = {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}
+        finally:
+            cli.align_target_poses, pipeline.InferencePipeline.render = real_align, real_render
+        expected = (steps + 2 + -(-frames // 10), steps)
+        if (launches["composite_fwd"], launches["composite_bwd"]) != expected:
+            raise AssertionError(f"inference path: compositor launches (fwd, bwd) "
+                                 f"{launches['composite_fwd'], launches['composite_bwd']}, expected {expected}")
+        names = {p.name for p in os.scandir(out_dir)}
+        wanted = {"style.png", "gaussians.ply", "gaussians_stylized.ply", "info.json", "interpolation",
+                  *(f"context_{i:04d}.png" for i in context),
+                  *(f"{kind}_{i:04d}.png" for i in targets for kind in ("target_gt", "color", "stylized_color"))}
+        if names - {"interpolation.mp4"} != wanted:
+            raise AssertionError(f"inference path wrote {sorted(names)}, expected {sorted(wanted)}")
+        video = sorted(os.listdir(os.path.join(out_dir, "interpolation")))
+        if video != [f"{i:04d}.png" for i in range(frames)]:
+            raise AssertionError(f"inference path: {len(video)} video frames, expected {frames}")
+        vertices = [len(load_ply(os.path.join(out_dir, name))["x"]) for name in ("gaussians.ply", "gaussians_stylized.ply")]
+        if vertices != [2 * hw[0] * hw[1]] * 2:
+            raise AssertionError(f"inference path: PLYs hold {vertices} vertices, expected {2 * hw[0] * hw[1]}")
+        with open(os.path.join(out_dir, "info.json")) as f:
+            info = json.load(f)
+        if not np.isfinite(info["psnr_unstylized"]) or info != metrics:
+            raise AssertionError(f"inference path: info.json {info}, returned {metrics}")
+
+    ms = {tag: [1e3 * x for x in times] for tag, times in bench.execution_times.items()}
+    t = len(targets)
+    times = dict(
+        predict_ms=ms["encoder"], align_ms_per_step=statistics.mean(ms["optimize"]),
+        render_ms=[statistics.mean(ms["decoder"][i : i + t]) * t for i in range(0, 2 * t, t)],
+        video_ms_per_frame=statistics.mean(ms["video"]),
+    )
+    log(f"inference path: run_scene_inference, 2 context views + 3 targets at {size}^2, {steps} alignment steps, "
+        f"{frames} video frames: predict {times['predict_ms'][0]:.2f} and {times['predict_ms'][1]:.2f} ms, "
+        f"alignment {times['align_ms_per_step']:.2f} ms/step, renders {times['render_ms'][0]:.2f} and "
+        f"{times['render_ms'][1]:.2f} ms (3 views), video {times['video_ms_per_frame']:.2f} ms/frame; PSNR "
+        f"{metrics['psnr_unstylized']:.4f}; PLYs {vertices[0]} vertices; launches fwd {launches['composite_fwd']} "
+        f"bwd {launches['composite_bwd']} [{card}]")
+
+    # The kernels on the alignment's own inputs: its first step's.
+    (args, kwargs), = align_calls
+    gaussians, ext, k, near, far, target_images, _ = args
+    render_kwargs = {key: v for key, v in kwargs.items() if key != "steps"}
+    max_per_tile = render_kwargs["max_per_tile"]
+    with torch.no_grad():
+        inputs = main_path_inputs(gaussians, ext, k, near, far, hw, render_kwargs)
+        fwd = check_composite(inputs, max_per_tile)
+        bwd = check_composite_bwd(inputs, max_per_tile, *mse_cotangents(inputs, max_per_tile, target_images))
+    log(f"kernel composite_fwd, alignment's own inputs (3 fused {size}^2 views, {int(inputs.live_pairs)} live "
+        f"pairs): agrees with the plain version, max err {fwd['max_abs_err']:.3g}; {fwd_windows_line(fwd)}")
+    log(f"kernel composite_bwd, alignment's own inputs and MSE cotangents: agrees with the plain version, max err "
+        f"{bwd['max_abs_err']:.3g} ({bwd['max_rel_err']:.3g} of its column's largest gradient), "
+        f"{bwd['pairs_with_grad']} pairs with a gradient of {bwd['walked']} walked; {windows_line(bwd)}")
+    kern = delta_grads(gaussians, ext, k, near, far, target_images, hw, render_kwargs)
+    with plain_compositor():
+        plain = delta_grads(gaussians, ext, k, near, far, target_images, hw, render_kwargs)
+    grad_err = {}
+    for name, a, b in zip(("rot", "trans"), kern, plain):
+        scale = float(b.abs().max())
+        if not scale > 0:
+            raise AssertionError(f"camera-delta gradient {name}: no gradient reached the deltas")
+        grad_err[name] = float((a - b).abs().max()) / scale
+        if not grad_err[name] <= 1e-3:
+            raise AssertionError(f"camera-delta gradient {name}: kernels vs plain {grad_err[name]} of {scale}")
+    log(f"camera-delta gradients of the alignment's render, kernels vs plain versions: rotation within "
+        f"{grad_err['rot']:.3g}, translation within {grad_err['trans']:.3g} of the largest component")
+
+    # The forward on the first video chunk's inputs (10 views, the
+    # renderer's default caps, as the reference's video takes).
+    (args, kwargs) = render_calls[2]
+    video_gaussians, video_ext, video_k, video_near, video_far = args
+    video_max = kwargs.get("max_per_tile", 4096)
+    with torch.no_grad():
+        video_inputs = main_path_inputs(video_gaussians, video_ext, video_k, video_near, video_far, hw, kwargs)
+        video_fwd = check_composite(video_inputs, video_max)
+    log(f"kernel composite_fwd, the video's first chunk ({video_ext.shape[1]} fused {size}^2 views, max_per_tile "
+        f"{video_max}, {int(video_inputs.live_pairs)} live pairs): agrees with the plain version, max err "
+        f"{video_fwd['max_abs_err']:.3g}; {fwd_windows_line(video_fwd)}")
+    return dict(launches=launches, times=times, psnr_unstylized=metrics["psnr_unstylized"], ply_vertices=vertices[0],
+                fwd=fwd, bwd=bwd, video_fwd=video_fwd, delta_grad_rel_err=grad_err,
+                live_pairs=int(inputs.live_pairs))
+
+
+def four_view_phase(model, card, hw, render_kwargs):
+    """A 4-view predict and render at full width (infer_tnt_batch's
+    context), twice, each timed with CUDA events: the first call at these
+    shapes, and a warm one."""
+    import torch
+
+    from styl3r_tpu_torch.ops.rasterizer import composite
+
+    batch = example_batch(7, model.device, v=4)
+    g = 4 * hw[0] * hw[1]
+    times = []
+    composite.launches = composite.backward_launches = 0
+    for i in range(2):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        with torch.no_grad():
+            start.record()
+            gaussians, out = model(batch, hw, **render_kwargs)
+            end.record()
+            torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+        finite = all(bool(torch.isfinite(x).all()) for x in (*gaussians, out.color, out.depth, out.alpha))
+        if not finite or out.color.shape != (1, 1, *hw, 3) or gaussians.means.shape != (1, g, 3):
+            raise AssertionError("4-view predict: non-finite or misshapen output")
+        live, slots = int(out.live_pairs.max()), int(out.pair_slots.min())
+        if composite.launches != i + 1 or not 0 < live <= slots:
+            raise AssertionError(f"4-view predict: {composite.launches} launches after {i + 1} calls, live pairs "
+                                 f"{live} of {slots} slots")
+    launches = {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}
+    log(f"4-view predict + render at {hw[0]}x{hw[1]}: {times[0]:.2f} ms the first call at these shapes, "
+        f"{times[1]:.2f} ms the second; {g} Gaussians, live pairs {live} [{card}]")
+    return dict(ms=times, gaussians=g, live_pairs=live, launches=launches)
+
+
+def recovery_cloud(device, g=131072, seed=0, size=1 / 16):
+    """tests/test_infer.py::make_scene's cloud scaled up to g Gaussians,
+    drawn the same way from numpy's generator, each `size` times as large as
+    there: 256x as many Gaussians at 1/16 of the size cover the view as the
+    512 there do. At full size the front layer hides the rest and the view
+    is nearly a plane at z = 2, where a turn about y and a shift along x
+    look alike, and the pose error stalls above 0.3x of its start."""
+    import numpy as np
+    import torch
+
+    from styl3r_tpu_torch.geometry.gaussians import Gaussians
+    from styl3r_tpu_torch.ops.rasterizer.project import SH_C0
+
+    rng = np.random.default_rng(seed)
+    means = np.stack([rng.uniform(-1.5, 1.5, g), rng.uniform(-1.5, 1.5, g), rng.uniform(2, 6, g)], -1)
+    scales = rng.uniform(0.02, 0.08, (g, 3)) * size
+    quats = rng.normal(size=(g, 4))
+    sh = (rng.uniform(0, 1, (g, 3)) - 0.5)[..., None] / SH_C0
+    opacities = rng.uniform(0.5, 1.0, g)
+
+    def tensor(x):
+        return torch.tensor(x, dtype=torch.float32, device=device)[None]
+
+    return Gaussians(tensor(means), None, tensor(sh), tensor(opacities), tensor(scales), tensor(quats))
+
+
+def recovery_phase(card, device="cuda", g=131072, steps=60, hw=(256, 256)):
+    """tests/test_infer.py::test_pose_alignment_recovers_perturbation at the
+    main path's scale: from the identity, align_target_poses brings one
+    view's pose error below 0.3x of its start."""
+    import torch
+
+    from styl3r_tpu_torch.geometry.se3 import se3_exp
+    from styl3r_tpu_torch.infer.pipeline import align_target_poses
+    from styl3r_tpu_torch.models.decoder import render_gaussians
+    from styl3r_tpu_torch.ops.rasterizer import composite
+
+    dev = torch.device(device)
+    gaussians = recovery_cloud(dev, g)
+    true_ext = se3_exp(torch.tensor([0.05, -0.03, 0.0, 0.0, 0.02, 0.0], device=dev))[None, None]
+    k = torch.tensor([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1.0]], device=dev)[None, None]
+    near, far = torch.full((1, 1), 0.1, device=dev), torch.full((1, 1), 100.0, device=dev)
+    render_kwargs = dict(max_per_tile=2048, max_tiles_per_gaussian=8)
+    with torch.no_grad():
+        target = render_gaussians(gaussians, true_ext, k, near, far, hw, **render_kwargs)
+    start = torch.eye(4, device=dev)[None, None]
+    # The first step's camera-delta gradients on these dense inputs (tiles of
+    # several windows), kernels against plain versions.
+    kern = delta_grads(gaussians, start, k, near, far, target.color, hw, render_kwargs)
+    with plain_compositor():
+        plain = delta_grads(gaussians, start, k, near, far, target.color, hw, render_kwargs)
+    grad_err = {name: float((a - b).abs().max() / b.abs().max()) for name, a, b in zip(("rot", "trans"), kern, plain)}
+    log(f"pose recovery's first step, camera-delta gradients, kernels vs plain versions: rotation within "
+        f"{grad_err['rot']:.3g}, translation within {grad_err['trans']:.3g} of the largest component")
+    if not max(grad_err.values()) <= 1e-3:
+        raise AssertionError(f"pose recovery: camera-delta gradients differ from the plain versions: {grad_err}")
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    composite.launches = composite.backward_launches = 0
+    t0.record()
+    aligned = align_target_poses(gaussians, start, k, near, far, target.color, hw, steps=steps,
+                                 rot_lr=5e-3, trans_lr=5e-3, **render_kwargs)
+    t1.record()
+    torch.cuda.synchronize()
+    launches = {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}
+    if (launches["composite_fwd"], launches["composite_bwd"]) != (steps, steps):
+        raise AssertionError(f"pose recovery: compositor launches {launches}, expected {steps} of each")
+    before = float((start - true_ext).abs().max())
+    after = float((aligned - true_ext).abs().max())
+    if not after < 0.3 * before:
+        raise AssertionError(f"pose recovery: error {after} after {steps} steps, from {before}")
+    ms = t0.elapsed_time(t1) / steps
+    log(f"pose recovery, {g} Gaussians at {hw[0]}x{hw[1]} ({int(target.live_pairs.max())} live pairs): "
+        f"pose error {before:.4f} -> {after:.4f} ({after / before:.3f}x) in {steps} steps, {ms:.2f} ms/step [{card}]")
+    return dict(before=before, after=after, ratio=after / before, steps=steps, ms_per_step=ms,
+                live_pairs=int(target.live_pairs.max()), delta_grad_rel_err=grad_err, launches=launches)
 
 
 def train_phase(model, batch, hw, render_kwargs, card, stage, reps=5, warm=2):
@@ -666,7 +968,8 @@ def main():
         raise AssertionError("kernel composite_fwd was not launched on the serving path")
 
     with torch.inference_mode():
-        res_main = check_composite(main_path_inputs(gaussians, batch, hw, render_kwargs), 2048)
+        # batch[2:6]: the target cameras (extrinsics, intrinsics, near, far).
+        res_main = check_composite(main_path_inputs(gaussians, *batch[2:6], hw, render_kwargs), 2048)
     log(f"kernel composite_fwd, serving path's own inputs: agrees with the plain version, "
         f"max err {res_main['max_abs_err']:.3g}; {fwd_windows_line(res_main)}")
 
@@ -694,7 +997,17 @@ def main():
     log(f"main path: {1e3 / step_ms:.3f} scenes/s, {step_ms:.2f} ms/scene (encoder "
         f"{statistics.median(enc_ms):.2f} ms, render {statistics.median(ren_ms):.2f} ms; median of 10), "
         f"{util['tflops']:.1f} TFLOP/s = MFU {util['mfu']:.4f} of 989 TFLOP/s bf16 [{card}]")
-    del model, gaussians, out, g
+    del gaussians, out, g
+
+    # -- inference path: the entry points' flow, with pose alignment --------
+    infer = inference_phase(model, card)
+    launches["infer"] = infer["launches"]
+    four_view = four_view_phase(model, card, hw, render_kwargs)
+    launches["infer_4view"] = four_view.pop("launches")
+    del model
+    torch.cuda.empty_cache()
+    recovery = recovery_phase(card)
+    launches["recovery"] = recovery.pop("launches")
     torch.cuda.empty_cache()
 
     # -- training: full width, f32 master weights, bf16 compute ---------------
@@ -710,7 +1023,7 @@ def main():
     # dropout aside) and MSE cotangents.
     with torch.no_grad():
         g = model.predict_gaussians(train_batch._replace(style_image=train_batch.context_images[:, 0]))
-        train_inputs = main_path_inputs(g, train_batch, hw, train_kwargs)
+        train_inputs = main_path_inputs(g, *train_batch[2:6], hw, train_kwargs)
         bwd_main = check_composite_bwd(train_inputs, 2048, *mse_cotangents(train_inputs, 2048, train_batch.target_images))
         res_train = check_composite(train_inputs, 2048)
     log(f"kernel composite_bwd, stage-1 training path's own inputs ({int(train_inputs.live_pairs)} live pairs, "
@@ -746,14 +1059,16 @@ def main():
     # -- kernel times: device time from the profiler, after the paths'
     # timing, which the profiler's attached tracing would slow down ---------
     for what, res in (("dense cloud", res_dense), ("serving path's own inputs", res_main),
-                      ("stage-1 training path's own inputs", res_train)):
+                      ("stage-1 training path's own inputs", res_train), ("alignment's own inputs", infer["fwd"]),
+                      ("the video's first chunk", infer["video_fwd"])):
         composite_device_ms(res)
         log(f"kernel composite_fwd, {what}: {res['ms']:.4f} ms on the device, {res['call_ms']:.4f} ms a call "
             f"(CUDA events, median of 20), plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.5f} ms "
             f"({res['bound_by']}, {res['evals']} pixel-pair evaluations) [{card}]")
         log(f"kernel composite_fwd, {what}: launched as {shape_text(res['launch'])} (profiler trace): "
             f"{res['launch']['blocks_per_tile']:g} blocks a tile, {res['launch']['threads_per_pixel']:g} threads a pixel")
-    for what, res in (("dense cloud", bwd_dense), ("training path's own inputs", bwd_main)):
+    for what, res in (("dense cloud", bwd_dense), ("training path's own inputs", bwd_main),
+                      ("alignment's own inputs", infer["bwd"])):
         composite_bwd_device_ms(res)
         log(f"kernel composite_bwd, {what}: {res['ms']:.4f} ms on the device (window sums "
             f"{res['phase_ms']['sums']:.4f} + gradients {res['phase_ms']['grad']:.4f}), {res['call_ms']:.4f} ms a "
@@ -785,13 +1100,16 @@ def main():
             "replaces": "styl3r_tpu/ops/rasterizer/pallas_kernel.py:151",
             "launches": sum(count("composite_fwd").values()),
             "launches_by_path": count("composite_fwd"),
-            "max_abs_err": max(res_dense["max_abs_err"], res_main["max_abs_err"], res_train["max_abs_err"]),
+            "max_abs_err": max(res["max_abs_err"] for res in (res_dense, res_main, res_train, infer["fwd"],
+                                                               infer["video_fwd"])),
             **{k: res_main[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
             "windows": res_main["windows"],
             "launch": res_main["launch"],
             "dense_cloud": fwd_numbers(res_dense),
             "train_inputs": fwd_numbers(res_train),
+            "align_inputs": fwd_numbers(infer["fwd"]),
+            "video_inputs": fwd_numbers(infer["video_fwd"]),
         },
         {
             "name": "composite_bwd",
@@ -800,8 +1118,8 @@ def main():
             "replaces": "styl3r_tpu/ops/rasterizer/pallas_backward.py:48",
             "launches": sum(count("composite_bwd").values()),
             "launches_by_path": count("composite_bwd"),
-            "max_abs_err": max(bwd_dense["max_abs_err"], bwd_main["max_abs_err"]),
-            "max_rel_err": max(bwd_dense["max_rel_err"], bwd_main["max_rel_err"]),
+            "max_abs_err": max(bwd_dense["max_abs_err"], bwd_main["max_abs_err"], infer["bwd"]["max_abs_err"]),
+            "max_rel_err": max(bwd_dense["max_rel_err"], bwd_main["max_rel_err"], infer["bwd"]["max_rel_err"]),
             **{k: bwd_main[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
             "phase_ms": bwd_main["phase_ms"],
@@ -809,11 +1127,21 @@ def main():
             "launch": bwd_main["launch"],
             "dense_cloud": {**numbers(bwd_dense), "phase_ms": bwd_dense["phase_ms"], "windows": windows(bwd_dense),
                             "launch": bwd_dense["launch"]},
+            "align_inputs": {**numbers(infer["bwd"]), "phase_ms": infer["bwd"]["phase_ms"],
+                             "windows": windows(infer["bwd"]), "launch": infer["bwd"]["launch"],
+                             "max_abs_err": infer["bwd"]["max_abs_err"], "max_rel_err": infer["bwd"]["max_rel_err"]},
         },
     ]
     training = {f"stage{i}": {k: st[k] for k in ("ms", "examples_per_s", "peak_gib", "live_pairs")}
                 for i, st in ((1, stage1), (2, stage2))}
-    print(json.dumps({"kernels": kernels, "training": training, "card": card}), flush=True)
+    inference = {
+        **infer["times"], "psnr_unstylized": infer["psnr_unstylized"], "ply_vertices": infer["ply_vertices"],
+        "launches": infer["launches"], "align_live_pairs": infer["live_pairs"],
+        "delta_grad_rel_err": infer["delta_grad_rel_err"], "four_view": four_view, "recovery": recovery,
+        "align_inputs_max_abs_err": {"composite_fwd": infer["fwd"]["max_abs_err"],
+                                     "composite_bwd": infer["bwd"]["max_abs_err"]},
+    }
+    print(json.dumps({"kernels": kernels, "training": training, "inference": inference, "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

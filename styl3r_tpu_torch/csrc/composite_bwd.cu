@@ -51,8 +51,9 @@
 //    approximate reciprocal (each within a few ulp; about 20% off the dense
 //    cloud's time). The values that decide the masks, power and alpha_raw,
 //    are rounded operation by operation with __fmul_rn / __fadd_rn exactly
-//    as composite_fwd.cu (built with -fmad=false) rounds them, and L_w with
-//    expf and log1pf as before, so t_ws keeps its rounding.
+//    as composite_fwd.cu rounds them (both kernels contract everywhere
+//    else), and L_w with expf and log1pf as before, so t_ws keeps its
+//    rounding.
 //
 // Layout: attrs are the forward's pair-major (n_pairs, 12) f32 rows
 // [mx, my, conic a, b, c, opacity, r, g, b, depth, pad, pad]; grad has the
@@ -118,7 +119,7 @@ __device__ __forceinline__ void stage(float4* batch, const float4* attrs,
 }
 
 // -0.5 * (a dx^2 + c dy^2) - b dx dy, rounded step by step as the forward
-// kernel's -fmad=false build rounds it.
+// kernel rounds it with the same intrinsics.
 __device__ __forceinline__ float power_of(const float* a, float dx, float dy) {
   const float xx = __fmul_rn(__fmul_rn(a[2], dx), dx);
   const float yy = __fmul_rn(__fmul_rn(a[4], dy), dy);

@@ -1,10 +1,12 @@
-"""SO(3)/SE(3) exponential maps, batched (counterpart of
-styl3r_tpu/geometry/se3.py; reference `src/misc/cam_utils.py:69-140`)."""
+"""SO(3)/SE(3) exponential maps and pose updates, batched (counterpart of
+styl3r_tpu/geometry/se3.py; reference `src/misc/cam_utils.py:27-43,69-140`)."""
 
 from __future__ import annotations
 
 import torch
 from torch import Tensor
+
+from .projection import invert_se3
 
 
 def skew(v: Tensor) -> Tensor:
@@ -67,3 +69,18 @@ def se3_exp(tau: Tensor) -> Tensor:
         [0.0, 0.0, 0.0, 1.0], dtype=tau.dtype, device=tau.device
     ).expand(*top.shape[:-2], 1, 4)
     return torch.cat([top, bottom], dim=-2)
+
+
+def update_pose(cam_trans_delta: Tensor, cam_rot_delta: Tensor, extrinsics: Tensor) -> Tensor:
+    """Left-multiply the SE3 delta exp([trans, rot]) onto the w2c of a batch
+    of c2w extrinsics and return the updated c2w (reference
+    `src/misc/cam_utils.py:117-140`)."""
+    tau = torch.cat([cam_trans_delta, cam_rot_delta], dim=-1)
+    return invert_se3(se3_exp(tau) @ invert_se3(extrinsics))
+
+
+def camera_normalization(pivotal_pose: Tensor, poses: Tensor) -> Tensor:
+    """Re-express c2w poses relative to a pivotal c2w camera, which becomes
+    the identity (reference `src/misc/cam_utils.py:27-43`).
+    pivotal_pose: (..., 4, 4); poses: (..., n, 4, 4) or (n, 4, 4)."""
+    return invert_se3(pivotal_pose) @ poses

@@ -1,5 +1,6 @@
 from .basic import mse_loss
 from .lpips import LPIPSVgg16, convert_lpips_state
+from .ssim import ssim
 from .style import calc_mean_std, identity_loss, style_loss
 from .vgg import VGG19Features, imagenet_normalize
 
@@ -7,6 +8,7 @@ __all__ = [
     "mse_loss",
     "LPIPSVgg16",
     "convert_lpips_state",
+    "ssim",
     "calc_mean_std",
     "identity_loss",
     "style_loss",

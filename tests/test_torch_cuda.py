@@ -396,3 +396,73 @@ def test_backward_kernel_is_deterministic(cuda):
     second = composite.composite_backward(*bwd, max_per_tile=max_per_tile)
     assert torch.equal(first, second)
     assert int((first != 0).any(1).sum()) > 1000
+
+
+def _alignment_scene(device, g=4000, v=3, hw=(64, 64)):
+    """A cloud seen by v target views, each at its own pose near the
+    identity, and target images rendered from other poses: what pose
+    alignment works on."""
+    from styl3r_tpu_torch.geometry.gaussians import Gaussians
+    from styl3r_tpu_torch.geometry.se3 import se3_exp
+    from styl3r_tpu_torch.models.decoder import render_gaussians
+
+    rng = np.random.default_rng(8)
+    z = rng.uniform(2, 6, g)
+    data = [
+        np.stack([rng.uniform(-1.5, 1.5, g), rng.uniform(-1.5, 1.5, g), z], -1), None,
+        rng.normal(scale=0.5, size=(g, 3, 1)), rng.uniform(0.5, 1.0, g),
+        rng.uniform(0.02, 0.08, (g, 3)), rng.normal(size=(g, 4)),
+    ]
+    gaussians = Gaussians(*(None if x is None else torch.tensor(x, dtype=torch.float32, device=device)[None]
+                            for x in data))
+
+    def cams(seed):
+        tau = np.random.default_rng(seed).normal(0, 0.03, (v, 6))
+        return se3_exp(torch.tensor(tau, dtype=torch.float32, device=device))[None]
+
+    k = torch.tensor([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1.0]], device=device).expand(1, v, 3, 3)
+    near, far = torch.full((1, v), 0.1, device=device), torch.full((1, v), 100.0, device=device)
+    with torch.no_grad():
+        images = render_gaussians(gaussians, cams(1), k, near, far, hw, max_per_tile=512).color
+    return gaussians, cams(2), k, near, far, images, hw
+
+
+def test_camera_delta_gradients_match_plain(cuda, monkeypatch):
+    """render_gaussians' MSE gradient w.r.t. three fused views' camera
+    deltas through both kernels, against the same render on the card with
+    composite_tiles and composite_backward swapped for their plain versions,
+    each pipeline on its own state: 1e-3 of the largest component."""
+    from styl3r_tpu_torch.models.decoder import render_gaussians
+
+    gaussians, ext, k, near, far, images, hw = _alignment_scene(cuda)
+
+    def grads():
+        rot = torch.zeros(1, 3, 3, device=cuda, requires_grad=True)
+        trans = torch.zeros(1, 3, 3, device=cuda, requires_grad=True)
+        out = render_gaussians(gaussians, ext, k, near, far, hw, cam_rot_delta=rot, cam_trans_delta=trans,
+                               max_per_tile=512)
+        return torch.autograd.grad(((out.color - images) ** 2).mean(), (rot, trans))
+
+    before = (composite.launches, composite.backward_launches)
+    ours = grads()
+    assert (composite.launches, composite.backward_launches) == (before[0] + 1, before[1] + 1)
+    monkeypatch.setattr(composite, "composite_tiles", composite.composite_tiles_plain)
+    monkeypatch.setattr(composite, "composite_backward",
+                        lambda *args, max_per_tile: composite.composite_backward_plain(*args))
+    plain = grads()
+    assert (composite.launches, composite.backward_launches) == (before[0] + 1, before[1] + 1)
+    for a, b in zip(ours, plain):
+        scale = float(b.abs().max())
+        assert scale > 0
+        assert float((a - b).abs().max()) <= 1e-3 * scale
+
+
+def test_each_alignment_step_launches_each_kernel_once(cuda):
+    from styl3r_tpu_torch.infer.pipeline import align_target_poses
+
+    gaussians, ext, k, near, far, images, hw = _alignment_scene(cuda)
+    for steps in (1, 3):
+        before = (composite.launches, composite.backward_launches)
+        aligned = align_target_poses(gaussians, ext, k, near, far, images, hw, steps=steps, max_per_tile=512)
+        assert (composite.launches - before[0], composite.backward_launches - before[1]) == (steps, steps)
+        assert bool(torch.isfinite(aligned).all()) and float((aligned - ext).abs().max()) > 0
