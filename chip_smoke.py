@@ -42,11 +42,23 @@ fails:
      VGG19 at random weights; every step launches
      each kernel twice, leaves the frozen parameters bitwise unchanged and,
      from the second step, changes the stylizer and the appearance head;
-  8. kernel times: each kernel's device time (torch.profiler, summed over
+  8. training entry point: styl3r_tpu_torch.train.main.main on the paper's
+     stage 2 (configs/experiment/re10k_3view_style.yaml, full width, 3
+     context views + 4 targets at 256^2, no pair cap) over synthetic RE10K
+     chunks (360x640 noise JPEGs), 4 steps at b = 2 with a validation and a
+     checkpoint every 2 steps; each step launches each kernel twice, each
+     validation the forward 4 times; the validation images and checkpoints
+     are checked, and the run is repeated as 2 steps plus a resume from
+     their step-2 checkpoint, whose losses and last weights must match the
+     uninterrupted run's. Step, validation and checkpoint times and sizes
+     are read from the run's metrics.jsonl. Both kernels are held
+     against their plain versions on the first step's own inputs and the
+     forward on the first validation's orthographic projection;
+  9. kernel times: each kernel's device time (torch.profiler, summed over
      the backward's two launches a call) and launch shape (grid, block and
      registers a thread, from the profiler's trace of the same calls), call
      time and plain version's time (CUDA events), beside its bound;
-  9. reference: a tiny-width model's Gaussians on the card agree with the
+ 10. reference: a tiny-width model's Gaussians on the card agree with the
      same model's on the CPU (whose agreement with the JAX package the CPU
      tests show).
 The line before the last is a JSON object with every kernel's numbers; the
@@ -56,6 +68,7 @@ last line is {"ok": true, "device": {...}}.
 import contextlib
 import gc
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -883,6 +896,309 @@ def train_phase(model, batch, hw, render_kwargs, card, stage, reps=5, warm=2):
                 bwd=composite.backward_launches, losses=losses, live_pairs=lives)
 
 
+FIT_CONFIG = "configs/experiment/re10k_3view_style.yaml"
+# A resumed step's loss against the uninterrupted run's: the card's
+# convolutions and matmuls are not bitwise deterministic (the CPU test holds
+# the resume bit for bit), and the resumed run starts from weights that went
+# through two such steps of their own.
+RESUME_TOL = 1e-3
+# The resumed run's weights at the last step against the uninterrupted
+# run's, as a share of what the two steps after the checkpoint changed: a
+# resume that dropped the restored weights, the Adam moments or the
+# schedule's position misses by about that whole change (the warm-up's
+# learning rates are too small for the loss to show it), while the card's
+# nondeterminism leaves a small part of it.
+RESUME_PARAM_TOL = 0.1
+
+
+def fit_chunks(root, n_scenes=4, n_frames=100, hw=(360, 640), seed=0):
+    """Synthetic RE10K chunks in `root`: n_scenes scenes of n_frames noise
+    JPEGs at RE10K's 360x640, cameras sliding 0.05 along x a frame with
+    normalized intrinsics fx 0.8 / fy 0.9 (tests/test_data.py:42), and a
+    style root with train/scene_style_mapping_all.json."""
+    import io
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+
+    def jpeg(shape):
+        buf = io.BytesIO()
+        Image.fromarray((rng.uniform(0, 1, (*shape, 3)) * 255).astype(np.uint8)).save(buf, format="JPEG", quality=90)
+        return buf.getvalue()
+
+    scenes = []
+    for i in range(n_scenes):
+        cameras = np.zeros((n_frames, 18), np.float32)
+        cameras[:, 0], cameras[:, 1], cameras[:, 2:4] = 0.8, 0.9, 0.5
+        w2c = np.tile(np.eye(4, dtype=np.float32), (n_frames, 1, 1))
+        w2c[:, 0, 3] = -0.05 * np.arange(n_frames)
+        cameras[:, 6:] = w2c[:, :3].reshape(n_frames, 12)
+        images = [torch.frombuffer(bytearray(jpeg(hw)), dtype=torch.uint8) for _ in range(n_frames)]
+        scenes.append({"key": f"scene_{i}", "cameras": torch.from_numpy(cameras), "images": images, "url": ""})
+    os.makedirs(os.path.join(root, "train"))
+    torch.save(scenes, os.path.join(root, "train", "000000.torch"))
+    style_dir = os.path.join(root, "styles", "train")
+    os.makedirs(style_dir)
+    Image.open(io.BytesIO(jpeg((400, 600)))).save(os.path.join(style_dir, "style0.jpg"))
+    with open(os.path.join(style_dir, "scene_style_mapping_all.json"), "w") as f:
+        json.dump({s["key"]: "style0.jpg" for s in scenes}, f)
+    return sum(len(im) for s in scenes for im in s["images"])
+
+
+class FitProbe:
+    """Records the compositor's inputs as one `fit` run passes them: the
+    first two forwards and the first backward (the first train step's
+    stylized and identity renders) and the first orthographic forward (the
+    first validation's projections). The run's times and sizes come from
+    its metrics.jsonl."""
+
+    def __init__(self):
+        self.train_fwd, self.bwd, self.ortho_fwd = [], None, None
+        self._in_ortho = False
+
+    @contextlib.contextmanager
+    def attached(self):
+        from styl3r_tpu_torch.ops.rasterizer import composite
+        from styl3r_tpu_torch.train import trainer as trainer_mod
+
+        probe = self
+        saved = (trainer_mod.render_orthographic, composite.composite_tiles, composite.composite_backward)
+        render_ortho, fwd, bwd = saved
+
+        def tagged_ortho(*args, **kwargs):
+            probe._in_ortho = True
+            try:
+                return render_ortho(*args, **kwargs)
+            finally:
+                probe._in_ortho = False
+
+        def record_fwd(*args):
+            if probe._in_ortho:
+                probe.ortho_fwd = probe.ortho_fwd or args
+            elif len(probe.train_fwd) < 2:
+                probe.train_fwd.append(args)
+            return fwd(*args)
+
+        def record_bwd(*args, **kwargs):
+            probe.bwd = probe.bwd or (args, kwargs["max_per_tile"])
+            return bwd(*args, **kwargs)
+
+        trainer_mod.render_orthographic = tagged_ortho
+        composite.composite_tiles, composite.composite_backward = record_fwd, record_bwd
+        try:
+            yield self
+        finally:
+            trainer_mod.render_orthographic, composite.composite_tiles, composite.composite_backward = saved
+
+
+def compositor_inputs(args):
+    """composite_tiles' positional arguments as the inputs check_composite takes."""
+    import types
+
+    attrs, starts, counts, backgrounds, grid, max_per_tile, n_views = args
+    return types.SimpleNamespace(attrs=attrs, starts=starts, counts=counts, backgrounds=backgrounds, grid=grid,
+                                 n_views=n_views, live_pairs=None), max_per_tile
+
+
+def fit_metrics(out_dir):
+    """A fit's metrics.jsonl by kind of record: train steps, validations'
+    scores and times, checkpoint saves and restores."""
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        records = [json.loads(line) for line in f]
+    kinds = dict(train="loss", val="val_psnr", validate="validate_seconds", save="checkpoint_seconds",
+                 restore="restore_seconds")
+    return {kind: [r for r in records if key in r] for kind, key in kinds.items()}
+
+
+def checkpoint_weights(path):
+    """A trainer checkpoint's model weights, on the host."""
+    import torch
+
+    return {k: v.clone() for k, v in torch.load(path, map_location="cpu", weights_only=True, mmap=True)["model"].items()}
+
+
+def weights_distance(a, b):
+    """The Euclidean distance between two state dicts' floating weights
+    (taken on the card, in f64)."""
+    total = 0.0
+    for k, x in a.items():
+        if x.is_floating_point():
+            total += float((x.cuda().double() - b[k].cuda().double()).square().sum())
+    return math.sqrt(total)
+
+
+def fit_phase(card, batch_size=2, steps=4):
+    """The training entry point, styl3r_tpu_torch.train.main.main, in-process
+    on the paper's stage 2 (re10k_3view_style.yaml: 3 context views, 4
+    targets, style 10 + identity with VGG19 at random weights, stylizer-only;
+    the config's renderer caps, no pair cap), full width, on synthetic
+    chunks: `steps` steps at b = `batch_size` (the config's 14 cut), a
+    validation and a checkpoint every 2 steps, keeping 1. Then the run is
+    repeated as an interrupted one: 2 steps, and a resume from their step-2
+    checkpoint to step `steps`, whose losses must match the uninterrupted
+    run's within RESUME_TOL and whose last weights the uninterrupted run's
+    within RESUME_PARAM_TOL of what steps 3-4 changed. Both kernels are
+    held against their plain
+    versions on the first step's own inputs (forwards and the backward with
+    the style loss's cotangents) and the forward on the first validation's
+    orthographic projection."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from styl3r_tpu_torch.ops.rasterizer import composite
+    from styl3r_tpu_torch.train import main as train_main
+
+    n_params = 1_043_732_697
+    # Each checkpoint holds at most the f32 weights and two Adam moments of
+    # every weight; a run keeps up to three files while it saves.
+    need = 3 * 12 * n_params + 2**30
+    with tempfile.TemporaryDirectory(prefix="styl3r_fit_") as tmp:
+        free = shutil.disk_usage(tmp).free
+        if free < need:
+            raise AssertionError(f"fit: {free / 2**30:.1f} GiB free under {tmp}, the checkpoints need "
+                                 f"{need / 2**30:.1f} GiB")
+        root = os.path.join(tmp, "re10k")
+        t0 = time.perf_counter()
+        jpeg_bytes = fit_chunks(root)
+        log(f"fit: wrote 4 synthetic scenes of 100 360x640 JPEG frames ({jpeg_bytes / 2**20:.1f} MiB) in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        def run(out, max_steps, *extra):
+            args = ["--config", os.path.join(ROOT, FIT_CONFIG), "--max-steps", str(max_steps),
+                    f"datasets.0.roots=[{root}]", f"datasets.0.style_root={os.path.join(root, 'styles')}",
+                    f"train.batch_size={batch_size}", "train.val_every_n_steps=2", "train.log_every_n_steps=1",
+                    "checkpointing.every_n_train_steps=2", "checkpointing.save_top_k=1",
+                    f"checkpointing.output_dir={out}", *extra]
+            probe = FitProbe()
+            with probe.attached():
+                t0 = time.perf_counter()
+                state = train_main.main(args)
+                torch.cuda.synchronize()
+            return state, probe, time.perf_counter() - t0, fit_metrics(out)
+
+        # -- the uninterrupted run: the phase's main path ---------------------
+        whole = os.path.join(tmp, "whole")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        composite.launches = composite.backward_launches = 0
+        state, probe, seconds, rec = run(whole, steps)
+        launches = {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        train_rec, val_rec = rec["train"], rec["val"]
+        losses = [r["loss"] for r in train_rec]
+        if state.step != steps or [r["step"] for r in train_rec] != list(range(1, steps + 1)):
+            raise AssertionError(f"fit: {state.step} steps, logged {[r['step'] for r in train_rec]}")
+        if not all(math.isfinite(x) for x in losses) or len(val_rec) != steps // 2:
+            raise AssertionError(f"fit: losses {losses}, {len(val_rec)} validations")
+        # Each step renders twice (stylized and identity) and each validation
+        # 4 times (targets, trajectory, projections, wobble).
+        expected = (2 * steps + 4 * (steps // 2), 2 * steps)
+        if (launches["composite_fwd"], launches["composite_bwd"]) != expected:
+            raise AssertionError(f"fit: compositor launches {launches}, expected (fwd, bwd) {expected}")
+        for name in ("val_comparison", "val_trajectory", "val_projections", "val_cameras", "val_camera_frustums"):
+            pngs = sorted(os.listdir(os.path.join(whole, name)))
+            if pngs != [f"{s:08d}.png" for s in range(2, steps + 1, 2)]:
+                raise AssertionError(f"fit: {name} holds {pngs}")
+        ckpts = sorted(os.listdir(os.path.join(whole, "checkpoints")))
+        if ckpts != ["final.pt", f"step_{steps}.pt"]:
+            raise AssertionError(f"fit: checkpoints {ckpts}")
+        step_ms = [r["step_ms"] for r in train_rec]
+        val_ms = [1e3 * r["validate_seconds"] for r in rec["validate"]]
+        save_s, ckpt_bytes = [r["checkpoint_seconds"] for r in rec["save"]], int(rec["save"][0]["checkpoint_bytes"])
+        data_s = [r["data_seconds"] for r in train_rec]
+        live, slots = int(train_rec[0]["live_pairs"]), int(train_rec[0]["pair_slots"])
+        log(f"fit: {steps} steps of stage 2 at b = {batch_size} (3 context views + 4 targets, no pair cap) "
+            f"in {seconds:.1f} s with the model's build, 2 validations and {len(save_s)} checkpoints: "
+            f"{statistics.median(step_ms[1:]):.2f} ms/step (median of steps 2-{steps}; the trainer's CUDA events), "
+            f"the first {step_ms[0]:.2f} ms; data wait {1e3 * statistics.median(data_s[1:]):.2f} ms/step (median; "
+            f"{1e3 * data_s[0]:.2f} ms for the first batch); validate {statistics.median(val_ms):.2f} ms (host "
+            f"clock); peak "
+            f"memory {peak_gib:.2f} GiB; loss {losses[0]:.5f} -> {losses[-1]:.5f}; live pairs {live} of {slots} "
+            f"slots at the first step; launches fwd {launches['composite_fwd']} bwd {launches['composite_bwd']} "
+            f"[{card}]")
+        log(f"fit: checkpoint {ckpt_bytes} bytes ({ckpt_bytes / 2**30:.2f} GiB), saved in "
+            f"{', '.join(f'{t:.2f}' for t in save_s)} s [{card}]")
+
+        # -- the kernels on the fit's own inputs --------------------------------
+        bwd_args, bwd_max = probe.bwd
+        fwd_calls = probe.train_fwd
+        inputs, max_per_tile = compositor_inputs(fwd_calls[0])
+        in_range = int(inputs.counts.long().sum())
+        with torch.no_grad():
+            fwd_res = check_composite(inputs, max_per_tile)
+            # The backward's own forward: the call whose pair rows it was given.
+            own, = [c for c in fwd_calls if c[0].data_ptr() == bwd_args[0].data_ptr()]
+            bwd_inputs, _ = compositor_inputs(own)
+            bwd_res = check_composite_bwd(bwd_inputs, bwd_max, *bwd_args[5:8])
+            ortho_inputs, ortho_max = compositor_inputs(probe.ortho_fwd)
+            ortho_res = check_composite(ortho_inputs, ortho_max)
+        size = f"{16 * inputs.grid[0]}x{16 * inputs.grid[1]}"
+        log(f"kernel composite_fwd, the fit's first step's own inputs ({inputs.n_views} fused {size} views, "
+            f"max_per_tile {max_per_tile}, {in_range} pairs in range): agrees with the plain version, max err "
+            f"{fwd_res['max_abs_err']:.3g}; {fwd_windows_line(fwd_res)}")
+        log(f"kernel composite_bwd, the fit's first step's own inputs and style-loss cotangents: agrees with the "
+            f"plain version, max err {bwd_res['max_abs_err']:.3g} ({bwd_res['max_rel_err']:.3g} of its column's "
+            f"largest gradient), {bwd_res['pairs_with_grad']} pairs with a gradient of {bwd_res['walked']} walked, "
+            f"up to {bwd_res['n_done_max']} windows; {bwd_res['zero_mismatch']} values 0 in one version only, at "
+            f"most {bwd_res['zero_mismatch_max']:.3g}; two calls bitwise equal")
+        log(f"kernel composite_fwd, the first validation's orthographic projection (3 views of 256^2, "
+            f"max_per_tile {ortho_max}): agrees with the plain version, max err {ortho_res['max_abs_err']:.3g}; "
+            f"{fwd_windows_line(ortho_res)}")
+        del probe, fwd_calls, bwd_args, own, inputs, bwd_inputs, ortho_inputs
+        whole_weights = checkpoint_weights(os.path.join(whole, "checkpoints", "final.pt"))
+        shutil.rmtree(whole)
+
+        # -- the interrupted run and its resume ---------------------------------
+        part = os.path.join(tmp, "part")
+        gc.collect()
+        torch.cuda.empty_cache()
+        composite.launches = composite.backward_launches = 0
+        run(part, steps // 2)
+        resume_ckpt = os.path.join(part, "checkpoints", f"step_{steps // 2}.pt")
+        start_weights = checkpoint_weights(resume_ckpt)
+        resumed, _, _, rec = run(part, steps, f"checkpointing.load={resume_ckpt}", "checkpointing.resume=true")
+        resume_launches = {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}
+        part_rec = rec["train"]
+        if resumed.step != steps or [r["step"] for r in part_rec] != list(range(1, steps + 1)):
+            raise AssertionError(f"fit resume: {resumed.step} steps, logged {[r['step'] for r in part_rec]}")
+        resume_err = [abs(a["loss"] - b["loss"]) / abs(b["loss"]) for a, b in zip(part_rec, train_rec)]
+        if not max(resume_err) <= RESUME_TOL:
+            raise AssertionError(f"fit resume: losses {[r['loss'] for r in part_rec]} against the uninterrupted "
+                                 f"run's {losses}: relative {resume_err} > {RESUME_TOL}")
+        resumed_weights = checkpoint_weights(os.path.join(part, "checkpoints", "final.pt"))
+        moved = weights_distance(whole_weights, start_weights)
+        param_err = weights_distance(resumed_weights, whole_weights) / moved
+        del whole_weights, start_weights, resumed_weights
+        if not (moved > 0 and param_err <= RESUME_PARAM_TOL):
+            raise AssertionError(f"fit resume: the resumed run's step-{steps} weights are {param_err:.3g} of the "
+                                 f"change over steps 3-{steps} ({moved:.4g}) from the uninterrupted run's "
+                                 f"(bound {RESUME_PARAM_TOL})")
+        load_s, load_bytes = rec["restore"][0]["restore_seconds"], int(rec["restore"][0]["restore_bytes"])
+        first_wait = part_rec[steps // 2]["data_seconds"]
+        log(f"fit resume: 2 steps, then a resume from the step-2 checkpoint to step {steps}: losses of steps 1-{steps} "
+            f"within {', '.join(f'{e:.3g}' for e in resume_err)} of the uninterrupted run's (relative; bound "
+            f"{RESUME_TOL}); step-{steps} weights {param_err:.3g} of the change over steps 3-{steps} ({moved:.4g}, "
+            f"L2) from the uninterrupted run's (bound {RESUME_PARAM_TOL}); restored {load_bytes} bytes in "
+            f"{load_s:.2f} s; first resumed batch after {1e3 * first_wait:.2f} ms [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(
+        launches=launches, resume_launches=resume_launches, steps=steps, batch_size=batch_size,
+        step_ms=step_ms, data_wait_ms=[1e3 * x for x in data_s], validate_ms=val_ms, peak_gib=peak_gib,
+        checkpoint_bytes=ckpt_bytes, save_s=save_s, load_s=load_s,
+        losses=losses, resume_losses=[r["loss"] for r in part_rec], resume_rel_err=resume_err,
+        resume_param_err=param_err, resume_first_wait_ms=1e3 * first_wait,
+        live_pairs=live, pair_slots=slots, val_psnr=[r["val_psnr"] for r in val_rec],
+        fwd=fwd_res, bwd=bwd_res, ortho_fwd=ortho_res,
+    )
+
+
 def main():
     import torch
 
@@ -1054,13 +1370,23 @@ def main():
         if not any(v[kernel] for k, v in launches.items() if k.startswith("train")):
             raise AssertionError(f"kernel {kernel} was not launched on the training path")
     del model
+    gc.collect()
     torch.cuda.empty_cache()
+
+    # -- the training entry point: fit, validate, checkpoint, resume --------
+    fit = fit_phase(card)
+    launches["fit"] = fit.pop("launches")
+    launches["fit_resume"] = fit.pop("resume_launches")
+    for kernel in ("composite_fwd", "composite_bwd"):
+        if not launches["fit"][kernel]:
+            raise AssertionError(f"kernel {kernel} was not launched by the fit")
 
     # -- kernel times: device time from the profiler, after the paths'
     # timing, which the profiler's attached tracing would slow down ---------
     for what, res in (("dense cloud", res_dense), ("serving path's own inputs", res_main),
                       ("stage-1 training path's own inputs", res_train), ("alignment's own inputs", infer["fwd"]),
-                      ("the video's first chunk", infer["video_fwd"])):
+                      ("the video's first chunk", infer["video_fwd"]), ("the fit's first step's inputs", fit["fwd"]),
+                      ("the fit's orthographic projection", fit["ortho_fwd"])):
         composite_device_ms(res)
         log(f"kernel composite_fwd, {what}: {res['ms']:.4f} ms on the device, {res['call_ms']:.4f} ms a call "
             f"(CUDA events, median of 20), plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.5f} ms "
@@ -1068,7 +1394,7 @@ def main():
         log(f"kernel composite_fwd, {what}: launched as {shape_text(res['launch'])} (profiler trace): "
             f"{res['launch']['blocks_per_tile']:g} blocks a tile, {res['launch']['threads_per_pixel']:g} threads a pixel")
     for what, res in (("dense cloud", bwd_dense), ("training path's own inputs", bwd_main),
-                      ("alignment's own inputs", infer["bwd"])):
+                      ("alignment's own inputs", infer["bwd"]), ("the fit's first step's inputs", fit["bwd"])):
         composite_bwd_device_ms(res)
         log(f"kernel composite_bwd, {what}: {res['ms']:.4f} ms on the device (window sums "
             f"{res['phase_ms']['sums']:.4f} + gradients {res['phase_ms']['grad']:.4f}), {res['call_ms']:.4f} ms a "
@@ -1101,7 +1427,7 @@ def main():
             "launches": sum(count("composite_fwd").values()),
             "launches_by_path": count("composite_fwd"),
             "max_abs_err": max(res["max_abs_err"] for res in (res_dense, res_main, res_train, infer["fwd"],
-                                                               infer["video_fwd"])),
+                                                               infer["video_fwd"], fit["fwd"], fit["ortho_fwd"])),
             **{k: res_main[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
             "windows": res_main["windows"],
@@ -1110,6 +1436,8 @@ def main():
             "train_inputs": fwd_numbers(res_train),
             "align_inputs": fwd_numbers(infer["fwd"]),
             "video_inputs": fwd_numbers(infer["video_fwd"]),
+            "fit_inputs": {**fwd_numbers(fit["fwd"]), "max_abs_err": fit["fwd"]["max_abs_err"]},
+            "ortho_inputs": {**fwd_numbers(fit["ortho_fwd"]), "max_abs_err": fit["ortho_fwd"]["max_abs_err"]},
         },
         {
             "name": "composite_bwd",
@@ -1118,8 +1446,8 @@ def main():
             "replaces": "styl3r_tpu/ops/rasterizer/pallas_backward.py:48",
             "launches": sum(count("composite_bwd").values()),
             "launches_by_path": count("composite_bwd"),
-            "max_abs_err": max(bwd_dense["max_abs_err"], bwd_main["max_abs_err"], infer["bwd"]["max_abs_err"]),
-            "max_rel_err": max(bwd_dense["max_rel_err"], bwd_main["max_rel_err"], infer["bwd"]["max_rel_err"]),
+            "max_abs_err": max(r["max_abs_err"] for r in (bwd_dense, bwd_main, infer["bwd"], fit["bwd"])),
+            "max_rel_err": max(r["max_rel_err"] for r in (bwd_dense, bwd_main, infer["bwd"], fit["bwd"])),
             **{k: bwd_main[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
             "phase_ms": bwd_main["phase_ms"],
@@ -1130,6 +1458,9 @@ def main():
             "align_inputs": {**numbers(infer["bwd"]), "phase_ms": infer["bwd"]["phase_ms"],
                              "windows": windows(infer["bwd"]), "launch": infer["bwd"]["launch"],
                              "max_abs_err": infer["bwd"]["max_abs_err"], "max_rel_err": infer["bwd"]["max_rel_err"]},
+            "fit_inputs": {**numbers(fit["bwd"]), "phase_ms": fit["bwd"]["phase_ms"], "windows": windows(fit["bwd"]),
+                           "launch": fit["bwd"]["launch"], "max_abs_err": fit["bwd"]["max_abs_err"],
+                           "max_rel_err": fit["bwd"]["max_rel_err"]},
         },
     ]
     training = {f"stage{i}": {k: st[k] for k in ("ms", "examples_per_s", "peak_gib", "live_pairs")}
@@ -1141,7 +1472,9 @@ def main():
         "align_inputs_max_abs_err": {"composite_fwd": infer["fwd"]["max_abs_err"],
                                      "composite_bwd": infer["bwd"]["max_abs_err"]},
     }
-    print(json.dumps({"kernels": kernels, "training": training, "inference": inference, "card": card}), flush=True)
+    fit_summary = {k: v for k, v in fit.items() if k not in ("fwd", "bwd", "ortho_fwd")}
+    print(json.dumps({"kernels": kernels, "training": training, "inference": inference, "fit": fit_summary,
+                      "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -12,7 +12,7 @@ from __future__ import annotations
 import io
 import json
 from pathlib import Path
-from typing import Dict, List, Tuple
+from typing import Dict, Iterator, List, Sequence, Tuple
 
 import numpy as np
 
@@ -71,3 +71,17 @@ def load_index(root: Path, stage: str) -> Dict[str, Path]:
     with (root / stage / "index.json").open() as f:
         index = json.load(f)
     return {k: root / stage / v for k, v in index.items()}
+
+
+def list_chunks(roots: Sequence[Path], stage: str) -> List[Path]:
+    """The .torch and .npz chunks under each root's `stage` directory, sorted
+    by name within a root, roots in order."""
+    chunks: List[Path] = []
+    for root in roots:
+        stage_dir = Path(root) / stage
+        chunks.extend(sorted(p for p in stage_dir.iterdir() if p.suffix in (".torch", ".npz")))
+    return chunks
+
+
+def iter_chunk_examples(chunk_path: Path) -> Iterator[Dict]:
+    yield from load_chunk(chunk_path)

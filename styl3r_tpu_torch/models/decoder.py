@@ -106,3 +106,54 @@ def render_gaussians(
         live_pairs=out.live_pairs.expand(n).reshape(b, v),
         pair_slots=out.pair_slots.expand(n).reshape(b, v),
     )
+
+
+def orthographic_cameras(
+    extrinsics: Tensor,
+    width: Tensor,
+    height: Tensor,
+    near: Tensor,
+    far: Tensor,
+    fov_degrees: float = 0.1,
+) -> Tuple[Tensor, Tensor, Tensor, Tensor]:
+    """Fake-orthographic cameras (reference render_cuda_orthographic,
+    cuda_splatting.py:136-227, up to the rasterizer call): each camera is
+    pulled back along its own -z by distance = (width/2) / tan(fov_x/2) for
+    a tiny fov_x, tan(fov_y/2) follows from the view's height, and near/far
+    move back by the same distance. extrinsics (b, v, 4, 4) c2w; width,
+    height, near, far (b, v) in world units. Returns (c2w, normalized K,
+    near, far) for render_gaussians."""
+    tan_fov_x = torch.tan(0.5 * torch.deg2rad(torch.tensor(fov_degrees, dtype=torch.float32)))
+    tan_fov_x = tan_fov_x.to(extrinsics.device)
+    distance = (0.5 * width) / tan_fov_x
+    tan_fov_y = 0.5 * height / distance
+
+    back = torch.eye(4, dtype=extrinsics.dtype, device=extrinsics.device).expand(*distance.shape, 4, 4).clone()
+    back[..., 2, 3] = -distance
+    new_ext = extrinsics @ back
+
+    k = torch.zeros(*distance.shape, 3, 3, dtype=torch.float32, device=extrinsics.device)
+    k[..., 0, 0] = 1.0 / (2.0 * tan_fov_x)
+    k[..., 1, 1] = 1.0 / (2.0 * tan_fov_y)
+    k[..., 0, 2] = 0.5
+    k[..., 1, 2] = 0.5
+    k[..., 2, 2] = 1.0
+    return new_ext, k, near + distance, far + distance
+
+
+def render_orthographic(
+    gaussians: Gaussians,
+    extrinsics: Tensor,
+    width: Tensor,
+    height: Tensor,
+    near: Tensor,
+    far: Tensor,
+    image_shape: Tuple[int, int],
+    fov_degrees: float = 0.1,
+    **render_kwargs,
+) -> DecoderOutput:
+    """Orthographic-looking projections for validation's top-down views of
+    the Gaussians (reference render_cuda_orthographic): the camera pulled
+    far back with a tiny field of view."""
+    new_ext, k, near2, far2 = orthographic_cameras(extrinsics, width, height, near, far, fov_degrees)
+    return render_gaussians(gaussians, new_ext, k, near2, far2, image_shape, **render_kwargs)

@@ -39,7 +39,9 @@ def batch_to(batch, device: DeviceLike) -> Batch:
     """Any Batch-shaped tuple of numpy arrays or tensors -> a Batch of f32
     tensors on `device` (sparse_anchor passes through)."""
     out = [
-        None if x is None else torch.as_tensor(np.array(x, np.float32), device=device)
+        None if x is None
+        else x.to(device, torch.float32) if torch.is_tensor(x)
+        else torch.as_tensor(np.array(x, np.float32), device=device)
         for x in batch[:8]
     ]
     return Batch(*out, sparse_anchor=batch[8] if len(batch) > 8 else None)

@@ -1,0 +1,76 @@
+"""Training entry point (counterpart of train.py; the reference's
+`python -m src.main_style`).
+
+    python -m styl3r_tpu_torch.train.main --config configs/experiment/re10k_3view_style.yaml \
+        [--max-steps N] [--cpu] [key.sub=value ...]
+
+The experiment config selects stage-1 novel-view pretraining or stage-2
+stylization. Runs on CUDA, or raises without it, unless --cpu is given.
+Weights:
+  * model.encoder.pretrained_weights=<.ckpt/.pth>: a Styl3R, NoPoSplat or
+    raw MASt3R torch checkpoint, warm-started by its flavor;
+  * model.encoder.stylizer_pretrained_weights=<.ckpt/.pth>: the token
+    stylizer's own warm start;
+  * checkpointing.load=<file>: the weights of a checkpoint, and with
+    checkpointing.resume=true also its optimizer state, step and data position.
+The final state goes to <checkpointing.output_dir>/checkpoints/final.pt.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+
+def main(argv=None, model=None):
+    """`model` replaces the full-width model the config would build (the
+    tests pass a tiny one)."""
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--config", default="configs/main.yaml")
+    parser.add_argument("--max-steps", type=int, default=None)
+    parser.add_argument("--cpu", action="store_true", help="run on the CPU instead of CUDA")
+    parser.add_argument("overrides", nargs="*", help="dotted key=value overrides")
+    args = parser.parse_args(argv)
+
+    from ..device import resolve_device
+    from ..utils.checkpoint import (
+        convert_stylizer_weights,
+        load_torch_state_dict,
+        warm_start_encoder_params,
+    )
+    from ..utils.config import load_config
+    from .trainer import Trainer
+
+    device = resolve_device("cpu" if args.cpu else None)
+    cfg = load_config(args.config, args.overrides)
+    print(f"device: {device}; mode={cfg.mode} datasets={len(cfg.datasets)} batch={cfg.train.batch_size}")
+
+    trainer = Trainer(cfg, model=model, device=device)
+    try:
+        # Warm starts (main_style.py:128-168), loaded over the model's init
+        # inside fit.
+        warm_start = None
+        if cfg.model.encoder.pretrained_weights:
+            sd = load_torch_state_dict(cfg.model.encoder.pretrained_weights)
+            warm_start = warm_start_encoder_params(sd, cfg.model.encoder.sh_degree)
+            print(f"warm-started encoder from {cfg.model.encoder.pretrained_weights}")
+        if cfg.model.encoder.stylizer_pretrained_weights:
+            sty = convert_stylizer_weights(load_torch_state_dict(cfg.model.encoder.stylizer_pretrained_weights))
+            warm_start = {**(warm_start or {}), **sty}
+            print(f"warm-started stylizer from {cfg.model.encoder.stylizer_pretrained_weights}")
+
+        # A resume restores the weights with the rest of the state (fit).
+        init_params = None
+        if cfg.checkpointing.load and not cfg.checkpointing.resume:
+            init_params = trainer.load_params_lazy(cfg.checkpointing.load)
+            print(f"loaded weights from {cfg.checkpointing.load}")
+
+        state = trainer.fit(max_steps=args.max_steps, init_params=init_params, warm_start=warm_start)
+        trainer.save_checkpoint(state, trainer.output_dir / "checkpoints" / "final.pt")
+    finally:
+        trainer.close()
+    print("done")
+    return state
+
+
+if __name__ == "__main__":
+    main()

@@ -80,6 +80,15 @@ class GroupedAdamW:
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
 
+    def state_dict(self) -> Dict[str, Any]:
+        """AdamW's moments and step counts (of the trained parameters only)
+        and the schedule's position."""
+        return {"adamw": self.adamw.state_dict(), "schedule": self.schedule.state_dict()}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.adamw.load_state_dict(state["adamw"])
+        self.schedule.load_state_dict(state["schedule"])
+
     def step(self) -> Tensor:
         """Clip, then update. A parameter the loss did not reach gets a zero
         gradient, so weight decay still applies to it, as with optax.

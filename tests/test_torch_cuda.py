@@ -14,6 +14,8 @@ another order, and the window-level reconstruction divides by products of
 (1 - alpha)); pairs no window walked must be exactly 0.
 """
 
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -466,3 +468,96 @@ def test_each_alignment_step_launches_each_kernel_once(cuda):
         aligned = align_target_poses(gaussians, ext, k, near, far, images, hw, steps=steps, max_per_tile=512)
         assert (composite.launches - before[0], composite.backward_launches - before[1]) == (steps, steps)
         assert bool(torch.isfinite(aligned).all()) and float((aligned - ext).abs().max()) > 0
+
+
+def test_forward_kernel_matches_plain_on_orthographic_inputs(cuda):
+    """Validation's orthographic projections of a cloud (front/top/side,
+    cameras pulled back about 573x the view's width with a 0.1 degree field
+    of view, so depths of order 1e3): the kernel against its plain version
+    at the renderer's default caps, 1e-5 (depth: of its largest value)."""
+    from styl3r_tpu_torch.models.decoder import orthographic_cameras
+    from styl3r_tpu_torch.ops.rasterizer.camera import make_raster_camera
+    from styl3r_tpu_torch.ops.rasterizer.render import composite_inputs
+    from styl3r_tpu_torch.utils.viz import ortho_projection_cameras
+
+    gaussians = _alignment_scene(cuda)[0]
+    cams = [torch.from_numpy(c).to(cuda)[None] for c in ortho_projection_cameras(gaussians.means[0].cpu().numpy())]
+    ext, k, near, far = orthographic_cameras(*cams)
+    hw, v = (256, 256), 3
+
+    def per_view(x):
+        return x.expand(v, *x.shape[1:])
+
+    inputs = composite_inputs(
+        make_raster_camera(ext[0], k[0], near[0], far[0], hw), per_view(gaussians.means), None,
+        per_view(gaussians.harmonics), per_view(gaussians.opacities), hw,
+        scales=per_view(gaussians.scales), rotations=per_view(gaussians.rotations),
+    )
+    args = (inputs.attrs, inputs.starts, inputs.counts, inputs.backgrounds, inputs.grid, 4096, inputs.n_views)
+    kern, plain = composite.composite_tiles(*args), composite.composite_tiles_plain(*args)
+    torch.cuda.synchronize()
+    assert int(inputs.live_pairs) > 1000 and float(plain.alpha.max()) > 0.5
+    assert torch.equal(kern.n_done, plain.n_done)
+    for name in ("color", "alpha", "t_final"):
+        assert float((getattr(kern, name) - getattr(plain, name)).abs().max()) <= 1e-5, name
+    depth_scale = float(plain.depth.abs().max())
+    assert depth_scale > 100 and float((kern.depth - plain.depth).abs().max()) <= 1e-5 * depth_scale
+
+
+def _fit_first_loss(device, tmp_path, monkeypatch):
+    """One stage-2 step (re10k_3view_style.yaml: style 10 + identity) of a
+    tiny model from fixed weights on `device`, its dropout masks drawn on
+    the CPU so that both devices draw the same: (first loss, compositor
+    launches during the fit)."""
+    from styl3r_tpu_torch.models import dpt
+    from styl3r_tpu_torch.models.styl3r import Batch, Styl3rModel
+    from styl3r_tpu_torch.train import trainer as trainer_mod
+    from styl3r_tpu_torch.utils.config import load_config
+
+    real_generator = trainer_mod.step_generator
+    monkeypatch.setattr(trainer_mod, "step_generator", lambda seed, step, _device: real_generator(seed, step, "cpu"))
+
+    def cpu_mask_dropout(x, p, training, generator):
+        if not training or p == 0.0:
+            return x
+        keep = (torch.rand(x.shape, generator=generator) >= p).to(x.device)
+        return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
+
+    monkeypatch.setattr(dpt, "dropout", cpu_mask_dropout)
+    tiny = dict(enc_depth=1, dec_depth=2, enc_dim=32, dec_dim=16, enc_heads=2, dec_heads=2, head_feature_dim=16,
+                head_last_dim=16, head_layer_dims=(8, 8, 16, 16))
+    model = Styl3rModel(sh_degree=0, device=device, **tiny)
+    model.load_state_dict(Styl3rModel(sh_degree=0, device="cpu", seed=3, **tiny).state_dict())
+    rng = np.random.default_rng(4)
+    k = np.asarray([[0.9, 0, 0.5], [0, 0.9, 0.5], [0, 0, 1.0]], np.float32)
+    ext = np.broadcast_to(np.eye(4, dtype=np.float32), (2, 2, 4, 4)).copy()
+    ext[:, 1, 0, 3] = 0.1
+    batch = Batch(rng.uniform(0, 1, (2, 2, 32, 32, 3)), np.broadcast_to(k, (2, 2, 3, 3)), ext,
+                  np.broadcast_to(k, (2, 2, 3, 3)), np.full((2, 2), 0.5), np.full((2, 2), 100.0),
+                  rng.uniform(0, 1, (2, 32, 32, 3)), rng.uniform(0.4, 0.6, (2, 2, 32, 32, 3)))
+    out = tmp_path / device
+    cfg = load_config("configs/experiment/re10k_3view_style.yaml", [
+        f"checkpointing.output_dir={out}", "train.log_every_n_steps=1", "train.val_every_n_steps=100",
+        "checkpointing.every_n_train_steps=100", "model.decoder.max_per_tile=512",
+        "model.decoder.max_tiles_per_gaussian=8",
+    ])
+    trainer = trainer_mod.Trainer(cfg, model=model)
+    before = (composite.launches, composite.backward_launches)
+    trainer.fit(max_steps=1, batches=iter([batch]))
+    trainer.close()
+    launched = (composite.launches - before[0], composite.backward_launches - before[1])
+    first = json.loads((out / "metrics.jsonl").read_text().splitlines()[0])
+    return first["loss"], launched
+
+
+def test_tiny_fit_on_the_card_launches_both_kernels_and_matches_the_cpu(cuda, tmp_path, monkeypatch):
+    """Trainer.fit's first stage-2 step on the card launches each kernel
+    twice (the main and the identity render) and its loss agrees with the
+    same step on the CPU within 1e-4 relative (f32 on both, TF32 off; the
+    card's convolutions and matmuls sum in other orders)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    cpu_loss, cpu_launched = _fit_first_loss("cpu", tmp_path, monkeypatch)
+    gpu_loss, gpu_launched = _fit_first_loss("cuda", tmp_path, monkeypatch)
+    assert cpu_launched == (0, 0) and gpu_launched == (2, 2)
+    assert np.isfinite(gpu_loss) and abs(gpu_loss - cpu_loss) <= 1e-4 * abs(cpu_loss)
