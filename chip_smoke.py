@@ -29,20 +29,37 @@ fails:
      the camera deltas' gradients of the whole render, kernels against
      plain versions; then two 4-view predicts + renders, and pose recovery
      on a synthetic cloud of 131,072 Gaussians (the error falls below 0.3x
-     of its start);
-  6. training, stage 1: the full-width model with f32 master weights, bf16
+     of its start; both kernels held on its first step's inputs);
+  6. evaluation entry points, at full width with random weights (f32
+     compute, as the JAX scripts'), on two synthetic RE10K test scenes with
+     an evaluation index of 2 context views and 3 targets each:
+     styl3r_tpu_torch.eval.evaluate.main with 100 pose-alignment steps a
+     scene (each launching each kernel once) and the renders saved (scores,
+     benchmark and peak-memory JSON, 3 PNGs a scene; its predict, alignment
+     and render times from benchmark.json); eval.compute_metrics.main on
+     those PNGs against the targets' (its PSNR within 0.1 dB of
+     scores.json's); eval.eval_pose.main with 200 refinement steps a scene
+     (each launching each kernel once; finite AUCs; CUDA events around each
+     refinement). Both kernels are held against their plain versions on a
+     refinement's own first step (the scene whose PnP pose sees the most
+     Gaussians), the backward on the MSE + SSIM loss's cotangents; then the
+     refinement recovers a 2-degree perturbation on a synthetic cloud of
+     131,072 Gaussians at 256^2 (the rotation error falls below 0.3x of its
+     start in 200 steps), and both kernels are held on its first step's
+     inputs too;
+  7. training, stage 1: the full-width model with f32 master weights, bf16
      compute and scratch_init_heads; both kernels are held against their
      plain versions on the path's own inputs (the backward with MSE
      cotangents); then 2 warm and 5 timed steps of make_train_step (MSE,
      make_optimizer) on b = 2 2-view 256^2 scenes, each of which launches
      each compositor kernel once; the warm steps' gradients reach the
      geometry heads;
-  7. training, stage 2: the same model, back at its scratch-initialized
+  8. training, stage 2: the same model, back at its scratch-initialized
      weights, and batch, make_stage2_optimizer and style 10 + identity with
      VGG19 at random weights; every step launches
      each kernel twice, leaves the frozen parameters bitwise unchanged and,
      from the second step, changes the stylizer and the appearance head;
-  8. training entry point: styl3r_tpu_torch.train.main.main on the paper's
+  9. training entry point: styl3r_tpu_torch.train.main.main on the paper's
      stage 2 (configs/experiment/re10k_3view_style.yaml, full width, 3
      context views + 4 targets at 256^2, no pair cap) over synthetic RE10K
      chunks (360x640 noise JPEGs), 4 steps at b = 2 with a validation and a
@@ -54,11 +71,11 @@ fails:
      are read from the run's metrics.jsonl. Both kernels are held
      against their plain versions on the first step's own inputs and the
      forward on the first validation's orthographic projection;
-  9. kernel times: each kernel's device time (torch.profiler, summed over
+ 10. kernel times: each kernel's device time (torch.profiler, summed over
      the backward's two launches a call) and launch shape (grid, block and
      registers a thread, from the profiler's trace of the same calls), call
      time and plain version's time (CUDA events), beside its bound;
- 10. reference: a tiny-width model's Gaussians on the card agree with the
+ 11. reference: a tiny-width model's Gaussians on the card agree with the
      same model's on the CPU (whose agreement with the JAX package the CPU
      tests show).
 The line before the last is a JSON object with every kernel's numbers; the
@@ -471,10 +488,10 @@ def composite_bwd_device_ms(res, reps=20):
     return res
 
 
-def mse_cotangents(inputs, max_per_tile, target_images):
-    """The stage-1 loss's cotangents at the compositor's outputs: dL/dcolor
-    of mean((color - target)^2) in the tile layout; depth and alpha get
-    none, and with a black background the folded dalpha is 0."""
+def image_cotangents(inputs, max_per_tile, loss_of_images):
+    """A loss's cotangents at the compositor's outputs: dL/dcolor in the
+    tile layout of loss_of_images((n_views, h, w, 3) rendered colors); depth
+    and alpha get none, and with a black background the folded dalpha is 0."""
     import torch
 
     from styl3r_tpu_torch.ops.rasterizer import composite
@@ -485,10 +502,26 @@ def mse_cotangents(inputs, max_per_tile, target_images):
     )
     with torch.enable_grad():
         color = out.color.detach().requires_grad_()
-        image = _tiles_to_image(color, inputs.n_views, *inputs.grid)
-        loss = ((image - target_images.reshape(image.shape)) ** 2).mean()
+        loss = loss_of_images(_tiles_to_image(color, inputs.n_views, *inputs.grid))
         (dcolor,) = torch.autograd.grad(loss, color)
     return dcolor, torch.zeros_like(out.depth), torch.zeros_like(out.alpha)
+
+
+def mse_cotangents(inputs, max_per_tile, target_images):
+    """The stage-1 and alignment loss's cotangents: mean((color - target)^2)."""
+    def loss(image):
+        return ((image - target_images.reshape(image.shape)) ** 2).mean()
+
+    return image_cotangents(inputs, max_per_tile, loss)
+
+
+def refine_cotangents(inputs, max_per_tile, target_image):
+    """The photometric refinement's cotangents: its loss, MSE + 0.2 * (1 -
+    SSIM), on the one view's render. The SSIM term's 11x11 Gaussian filter
+    reaches every pixel."""
+    from styl3r_tpu_torch.eval.pose import photometric_loss
+
+    return image_cotangents(inputs, max_per_tile, lambda image: photometric_loss(image[0], target_image))
 
 
 def reference_phase(card):
@@ -803,8 +836,299 @@ def recovery_phase(card, device="cuda", g=131072, steps=60, hw=(256, 256)):
     ms = t0.elapsed_time(t1) / steps
     log(f"pose recovery, {g} Gaussians at {hw[0]}x{hw[1]} ({int(target.live_pairs.max())} live pairs): "
         f"pose error {before:.4f} -> {after:.4f} ({after / before:.3f}x) in {steps} steps, {ms:.2f} ms/step [{card}]")
+    # Both kernels on the first step's inputs, the backward on its MSE cotangents.
+    with torch.no_grad():
+        inputs = main_path_inputs(gaussians, start, k, near, far, hw, render_kwargs)
+        fwd = check_composite(inputs, 2048)
+        bwd = check_composite_bwd(inputs, 2048, *mse_cotangents(inputs, 2048, target.color))
+    log(f"kernel composite_fwd, pose recovery's first step ({int(inputs.live_pairs)} live pairs): agrees with the "
+        f"plain version, max err {fwd['max_abs_err']:.3g}; {fwd_windows_line(fwd)}")
+    log(f"kernel composite_bwd, pose recovery's first step and MSE cotangents: agrees with the plain version, max "
+        f"err {bwd['max_abs_err']:.3g} ({bwd['max_rel_err']:.3g} of its column's largest gradient); "
+        f"{windows_line(bwd)}")
     return dict(before=before, after=after, ratio=after / before, steps=steps, ms_per_step=ms,
-                live_pairs=int(target.live_pairs.max()), delta_grad_rel_err=grad_err, launches=launches)
+                live_pairs=int(target.live_pairs.max()), delta_grad_rel_err=grad_err, launches=launches,
+                fwd=fwd, bwd=bwd)
+
+
+EVAL_CONFIG = "configs/experiment/re10k_eval.yaml"
+# Each synthetic scene's entry in the evaluation phase's index: two context
+# views and three targets between them.
+EVAL_VIEWS = {"context": [0, 10], "target": [3, 5, 7], "overlap": "medium"}
+# compute_metrics' PSNR over evaluate's 8-bit PNGs against the same targets'
+# PNGs, beside scores.json's over the float renders: the two quantizations
+# move the PSNR of a noise scene by a few thousandths of a dB.
+EVAL_PSNR_TOL = 0.1
+# tests/test_pose.py::test_photometric_refinement_recovers_pnp_error's
+# perturbation: about 2 degrees of rotation (the last three components) and
+# 2% of translation.
+REFINE_PERTURBATION = [0.02, -0.015, 0.01, 0.02, -0.025, 0.015]
+# The refinement's recovery on recovery_cloud at 256^2: the rotation error
+# after 200 steps, as a share of its start. The cloud's Gaussians are drawn
+# at half of tests/test_infer.py's size. On the CPU, at 256^2, 131,072
+# Gaussians of that size bring it to 0.123x; at a quarter of that size
+# (and at 32,768 Gaussians of 1/8 and 1/4 of it at 128^2) the error grows
+# to 1.3-2.0x instead: sub-pixel Gaussians give the 2-degree start no slope
+# to follow.
+REFINE_RECOVERY_BOUND = 0.3
+REFINE_CLOUD_SIZE = 0.5
+
+
+def refine_recovery_phase(card, device="cuda", g=131072, steps=200, hw=(256, 256)):
+    """tests/test_pose.py::test_photometric_refinement_recovers_pnp_error at
+    the main path's scale: refine_pose_photometric from about 2 degrees off
+    brings the rotation error below REFINE_RECOVERY_BOUND of its start, each
+    step launching each kernel once. Then both kernels are held against
+    their plain versions on the first step's inputs, the backward on the
+    refinement loss's (MSE + SSIM) cotangents."""
+    import numpy as np
+    import torch
+
+    from styl3r_tpu_torch.eval.pose import pose_error_deg, refine_pose_photometric
+    from styl3r_tpu_torch.geometry.se3 import se3_exp
+    from styl3r_tpu_torch.models.decoder import render_gaussians
+    from styl3r_tpu_torch.ops.rasterizer import composite
+
+    dev = torch.device(device)
+    gaussians = recovery_cloud(dev, g, size=REFINE_CLOUD_SIZE)
+    k = torch.tensor([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1.0]], device=dev)
+    near, far = 0.1, 100.0
+    render_kwargs = dict(max_per_tile=2048, max_tiles_per_gaussian=8)
+    with torch.no_grad():
+        target = render_gaussians(gaussians, torch.eye(4, device=dev)[None, None], k[None, None],
+                                  torch.full((1, 1), near, device=dev), torch.full((1, 1), far, device=dev), hw,
+                                  **render_kwargs)
+    start = se3_exp(torch.tensor(REFINE_PERTURBATION, device=dev))
+    t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    composite.launches = composite.backward_launches = 0
+    t0.record()
+    refined = refine_pose_photometric(gaussians, start, k, target.color[0, 0], near, far, steps=steps,
+                                      **render_kwargs)
+    t1.record()
+    torch.cuda.synchronize()
+    launches = {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}
+    if (launches["composite_fwd"], launches["composite_bwd"]) != (steps, steps):
+        raise AssertionError(f"refinement recovery: compositor launches {launches}, expected {steps} of each")
+    r0, _ = pose_error_deg(start.cpu().numpy(), np.eye(4))
+    r1, _ = pose_error_deg(refined.cpu().numpy(), np.eye(4))
+    t_err = float(refined[:3, 3].norm())
+    if not r1 < REFINE_RECOVERY_BOUND * r0:
+        raise AssertionError(f"refinement recovery: rotation error {r1} deg after {steps} steps, from {r0} deg "
+                             f"(bound {REFINE_RECOVERY_BOUND}x)")
+    ms = t0.elapsed_time(t1) / steps
+    log(f"refinement recovery, {g} Gaussians at {REFINE_CLOUD_SIZE} of test_infer's size, {hw[0]}x{hw[1]} "
+        f"({int(target.live_pairs.max())} live pairs): rotation error {r0:.4f} -> {r1:.4f} deg ({r1 / r0:.3f}x, "
+        f"bound {REFINE_RECOVERY_BOUND}), translation {float(start[:3, 3].norm()):.4f} -> {t_err:.4f}, in {steps} "
+        f"steps, {ms:.2f} ms/step [{card}]")
+
+    with torch.no_grad():
+        inputs = main_path_inputs(gaussians, start[None, None], k[None, None], torch.full((1, 1), near, device=dev),
+                                  torch.full((1, 1), far, device=dev), hw, render_kwargs)
+        fwd = check_composite(inputs, 2048)
+        bwd = check_composite_bwd(inputs, 2048, *refine_cotangents(inputs, 2048, target.color[0, 0]))
+    log(f"kernel composite_fwd, the refinement recovery's first step ({int(inputs.live_pairs)} live pairs): agrees "
+        f"with the plain version, max err {fwd['max_abs_err']:.3g}; {fwd_windows_line(fwd)}")
+    log(f"kernel composite_bwd, the refinement recovery's first step and MSE + SSIM cotangents: agrees with the "
+        f"plain version, max err {bwd['max_abs_err']:.3g} ({bwd['max_rel_err']:.3g} of its column's largest "
+        f"gradient), {bwd['pairs_with_grad']} pairs with a gradient of {bwd['walked']} walked; {windows_line(bwd)}")
+    return dict(r0_deg=r0, r1_deg=r1, ratio=r1 / r0, t0=float(start[:3, 3].norm()), t1=t_err, steps=steps,
+                ms_per_step=ms, live_pairs=int(target.live_pairs.max()), launches=launches, fwd=fwd, bwd=bwd)
+
+
+def evaluation_phase(card, scenes=2, align_steps=100, refine_steps=200, hw=(256, 256)):
+    """The evaluation entry points at full width with random weights from a
+    seed, on synthetic RE10K test chunks (12 noise JPEGs of 360x640 a scene)
+    and an evaluation index of 2 context views and 3 targets a scene:
+      * eval.evaluate.main with pose alignment (align_steps steps a scene,
+        each launching each kernel once) and the renders saved: the three
+        JSON files, finite scores, 3 PNGs a scene; its times from
+        benchmark.json;
+      * eval.compute_metrics.main on those PNGs against the same targets'
+        PNGs: its PSNR within EVAL_PSNR_TOL of scores.json's;
+      * eval.eval_pose.main with refine_steps refinement steps a scene, each
+        launching each kernel once: finite AUCs; each refinement timed with
+        CUDA events. Both kernels are held against their plain versions on
+        a refinement's own first step (the backward on its MSE + SSIM
+        cotangents);
+      * the refinement's recovery on a synthetic cloud
+        (refine_recovery_phase)."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from styl3r_tpu_torch.eval import compute_metrics, eval_pose, evaluate, harness, pose
+    from styl3r_tpu_torch.infer.cli import save_image
+    from styl3r_tpu_torch.infer.pipeline import default_render_kwargs
+    from styl3r_tpu_torch.ops.rasterizer import composite
+
+    with tempfile.TemporaryDirectory(prefix="styl3r_eval_") as tmp:
+        root = os.path.join(tmp, "re10k")
+        fit_chunks(root, n_scenes=scenes, n_frames=12, seed=1, stage="test")
+        index = os.path.join(tmp, "index.json")
+        with open(index, "w") as f:
+            json.dump({f"scene_{i}": EVAL_VIEWS for i in range(scenes)}, f)
+        data = ["--config", os.path.join(ROOT, EVAL_CONFIG), "--max-scenes", str(scenes),
+                f"datasets.0.roots=[{root}]", f"datasets.0.view_sampler.index_path={index}"]
+        n_targets = len(EVAL_VIEWS["target"])
+
+        # -- evaluate, with pose alignment ---------------------------------------
+        out = os.path.join(tmp, "evaluate")
+        targets, align_launches = [], []
+        real_step, real_align = harness.EvalHarness.test_step, harness.align_target_poses
+
+        def record_step(self, batch, scene="", overlap=None):
+            targets.append((scene, batch.target_images[0].cpu().numpy()))
+            return real_step(self, batch, scene, overlap)
+
+        def record_align(*args, **kwargs):
+            before = (composite.launches, composite.backward_launches)
+            ext = real_align(*args, **kwargs)
+            align_launches.append((composite.launches - before[0], composite.backward_launches - before[1]))
+            return ext
+
+        harness.EvalHarness.test_step, harness.align_target_poses = record_step, record_align
+        try:
+            torch.cuda.reset_peak_memory_stats()  # peak_memory.json: evaluate's own peak
+            composite.launches = composite.backward_launches = 0
+            t0 = time.perf_counter()
+            means = evaluate.main([*data, f"test.output_path={out}", "test.align_pose=true",
+                                   f"test.pose_align_steps={align_steps}", "test.save_image=true"])
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t0
+            eval_launches = {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}
+        finally:
+            harness.EvalHarness.test_step, harness.align_target_poses = real_step, real_align
+        gc.collect()
+        torch.cuda.empty_cache()
+        if align_launches != [(align_steps, align_steps)] * scenes:
+            raise AssertionError(f"evaluate: each alignment's (fwd, bwd) launches {align_launches}, expected "
+                                 f"{align_steps} of each a scene")
+        expected = (scenes * (align_steps + 1), scenes * align_steps)
+        if (eval_launches["composite_fwd"], eval_launches["composite_bwd"]) != expected:
+            raise AssertionError(f"evaluate: compositor launches {eval_launches}, expected (fwd, bwd) {expected}")
+        with open(os.path.join(out, "scores.json")) as f:
+            scores = json.load(f)
+        with open(os.path.join(out, "benchmark.json")) as f:
+            bench = json.load(f)
+        with open(os.path.join(out, "peak_memory.json")) as f:
+            peak = json.load(f)
+        if scores != means or not all(math.isfinite(scores[k]) for k in ("psnr/all", "ssim/all")):
+            raise AssertionError(f"evaluate: scores.json {scores}, returned {means}")
+        if list(peak) != [torch.cuda.get_device_name(0)] or not list(peak.values())[0] > 0:
+            raise AssertionError(f"evaluate: peak_memory.json {peak}")
+        pngs = sorted(os.path.relpath(os.path.join(d, name), os.path.join(out, "images"))
+                      for d, _, names in os.walk(os.path.join(out, "images")) for name in names)
+        wanted = [f"scene_{s}/{i:04d}.png" for s in range(scenes) for i in range(n_targets)]
+        if pngs != wanted or [scene for scene, _ in targets] != [f"scene_{s}" for s in range(scenes)]:
+            raise AssertionError(f"evaluate wrote {pngs}, expected {wanted}")
+        times = dict(
+            predict_ms=1e3 * bench["encoder"], predict_steady_ms=1e3 * bench["encoder_steady"],
+            align_ms_per_step=1e3 * bench["optimize"] / align_steps,
+            align_steady_ms_per_step=1e3 * bench["optimize_steady"] / align_steps,
+            render_ms=1e3 * bench["decoder"] * n_targets, render_steady_ms=1e3 * bench["decoder_steady"] * n_targets,
+        )
+        log(f"evaluate: {scenes} scenes of 2 context views + {n_targets} targets at {hw[0]}^2, {align_steps} "
+            f"alignment steps each, in {eval_s:.1f} s with the model's build: predict {times['predict_ms']:.2f} ms "
+            f"(the second scene {times['predict_steady_ms']:.2f}), alignment {times['align_ms_per_step']:.2f} ms/step "
+            f"({times['align_steady_ms_per_step']:.2f}), render {times['render_ms']:.2f} ms for {n_targets} views "
+            f"({times['render_steady_ms']:.2f}) (benchmark.json, CUDA events); PSNR {scores['psnr/all']:.4f}, SSIM "
+            f"{scores['ssim/all']:.4f}; peak memory {list(peak.values())[0] / 2**30:.2f} GiB; launches fwd "
+            f"{eval_launches['composite_fwd']} bwd {eval_launches['composite_bwd']} [{card}]")
+
+        # -- compute_metrics on evaluate's PNGs -----------------------------------
+        gt = os.path.join(tmp, "gt")
+        for scene, images in targets:
+            for i, image in enumerate(images):
+                save_image(os.path.join(gt, scene, f"{i:04d}.png"), image)
+        pred = os.path.join(out, "images")
+        offline = compute_metrics.main(["--gt-dir", gt, "--pred-dir", pred])[pred]
+        psnr_gap = abs(offline["psnr/all"] - scores["psnr/all"])
+        if not psnr_gap <= EVAL_PSNR_TOL:
+            raise AssertionError(f"compute_metrics: PSNR {offline['psnr/all']} against scores.json's "
+                                 f"{scores['psnr/all']} (bound {EVAL_PSNR_TOL} dB)")
+        log(f"compute_metrics: {scenes * n_targets} PNGs, PSNR {offline['psnr/all']:.4f} (scores.json's within "
+            f"{psnr_gap:.4f} dB, bound {EVAL_PSNR_TOL}), SSIM {offline['ssim/all']:.4f}")
+
+        # -- eval_pose, with photometric refinement --------------------------------
+        refinements = []
+        real_refine = pose.refine_pose_photometric
+
+        def record_refine(*args, steps, **kwargs):
+            before = (composite.launches, composite.backward_launches)
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            refined = real_refine(*args, steps=steps, **kwargs)
+            end.record()
+            torch.cuda.synchronize()
+            refinements.append(dict(
+                args=args, kwargs=kwargs, ms_per_step=start.elapsed_time(end) / steps,
+                launches=(composite.launches - before[0], composite.backward_launches - before[1]),
+            ))
+            return refined
+
+        pose.refine_pose_photometric = record_refine
+        try:
+            composite.launches = composite.backward_launches = 0
+            t0 = time.perf_counter()
+            aucs = eval_pose.main([*data, "--refine-steps", str(refine_steps)])
+            torch.cuda.synchronize()
+            pose_s = time.perf_counter() - t0
+            pose_launches = {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}
+        finally:
+            pose.refine_pose_photometric = real_refine
+        if sorted(aucs) != [5, 10, 20] or not all(math.isfinite(v) for v in aucs.values()):
+            raise AssertionError(f"eval_pose: AUCs {aucs}")
+        if [r["launches"] for r in refinements] != [(refine_steps, refine_steps)] * scenes:
+            raise AssertionError(f"eval_pose: each refinement's (fwd, bwd) launches "
+                                 f"{[r['launches'] for r in refinements]}, expected {refine_steps} of each a scene")
+        if (pose_launches["composite_fwd"], pose_launches["composite_bwd"]) != (scenes * refine_steps,) * 2:
+            raise AssertionError(f"eval_pose: compositor launches {pose_launches}")
+        refine_ms = [r["ms_per_step"] for r in refinements]
+        log(f"eval_pose: {scenes} scenes, PnP + {refine_steps} refinement steps each, in {pose_s:.1f} s with the "
+            f"model's build: refinement {', '.join(f'{x:.2f}' for x in refine_ms)} ms/step (CUDA events); AUC "
+            f"{', '.join(f'@{t}={v:.4f}' for t, v in aucs.items())}; launches fwd {pose_launches['composite_fwd']} "
+            f"bwd {pose_launches['composite_bwd']} [{card}]")
+
+        # The kernels on a refinement's own inputs, its first step: the
+        # scene whose PnP pose sees the most of its Gaussians (random
+        # weights may put the pose where it sees none).
+        def first_step(call):
+            gaussians, init, k, _, near, far = call["args"]
+            render_kwargs = default_render_kwargs(call["kwargs"])
+            dev = init.device
+            with torch.no_grad():
+                return main_path_inputs(gaussians, init[None, None], k[None, None],
+                                        torch.full((1, 1), near, device=dev), torch.full((1, 1), far, device=dev), hw,
+                                        render_kwargs), render_kwargs["max_per_tile"]
+
+        steps_in = [first_step(call) for call in refinements]
+        live = [int(inputs.live_pairs) for inputs, _ in steps_in]
+        best = live.index(max(live))
+        inputs, max_per_tile = steps_in[best]
+        target_image = refinements[best]["args"][3]
+        with torch.no_grad():
+            fwd = check_composite(inputs, max_per_tile)
+            bwd = check_composite_bwd(inputs, max_per_tile, *refine_cotangents(inputs, max_per_tile, target_image))
+        log(f"kernel composite_fwd, eval_pose's refinement of scene_{best}, first step ({live[best]} live pairs from "
+            f"the PnP pose; {live} in the scenes): agrees with the plain version, max err {fwd['max_abs_err']:.3g}; "
+            f"{fwd_windows_line(fwd)}")
+        log(f"kernel composite_bwd, eval_pose's refinement of scene_{best}, first step, and MSE + SSIM cotangents: "
+            f"agrees with the plain version, max err {bwd['max_abs_err']:.3g} ({bwd['max_rel_err']:.3g} of its "
+            f"column's largest gradient), {bwd['pairs_with_grad']} pairs with a gradient of {bwd['walked']} walked; "
+            f"{windows_line(bwd)}")
+        del refinements, steps_in, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    recovery = refine_recovery_phase(card)
+    return dict(
+        launches={"evaluate": eval_launches, "eval_pose": pose_launches, "refine_recovery": recovery.pop("launches")},
+        evaluate={**times, "seconds": eval_s, "scores": scores, "peak_bytes": list(peak.values())[0],
+                  "compute_metrics_psnr": offline["psnr/all"], "compute_metrics_ssim": offline["ssim/all"]},
+        eval_pose={"seconds": pose_s, "aucs": {str(t): v for t, v in aucs.items()}, "refine_ms_per_step": refine_ms,
+                   "refine_live_pairs": live},
+        fwd=fwd, bwd=bwd, recovery_fwd=recovery.pop("fwd"), recovery_bwd=recovery.pop("bwd"), recovery=recovery,
+    )
 
 
 def train_phase(model, batch, hw, render_kwargs, card, stage, reps=5, warm=2):
@@ -911,11 +1235,11 @@ RESUME_TOL = 1e-3
 RESUME_PARAM_TOL = 0.1
 
 
-def fit_chunks(root, n_scenes=4, n_frames=100, hw=(360, 640), seed=0):
-    """Synthetic RE10K chunks in `root`: n_scenes scenes of n_frames noise
-    JPEGs at RE10K's 360x640, cameras sliding 0.05 along x a frame with
-    normalized intrinsics fx 0.8 / fy 0.9 (tests/test_data.py:42), and a
-    style root with train/scene_style_mapping_all.json."""
+def fit_chunks(root, n_scenes=4, n_frames=100, hw=(360, 640), seed=0, stage="train"):
+    """Synthetic RE10K chunks in `root`/`stage`: n_scenes scenes of n_frames
+    noise JPEGs at RE10K's 360x640, cameras sliding 0.05 along x a frame
+    with normalized intrinsics fx 0.8 / fy 0.9 (tests/test_data.py:42), and
+    a style root with train/scene_style_mapping_all.json."""
     import io
 
     import numpy as np
@@ -938,8 +1262,8 @@ def fit_chunks(root, n_scenes=4, n_frames=100, hw=(360, 640), seed=0):
         cameras[:, 6:] = w2c[:, :3].reshape(n_frames, 12)
         images = [torch.frombuffer(bytearray(jpeg(hw)), dtype=torch.uint8) for _ in range(n_frames)]
         scenes.append({"key": f"scene_{i}", "cameras": torch.from_numpy(cameras), "images": images, "url": ""})
-    os.makedirs(os.path.join(root, "train"))
-    torch.save(scenes, os.path.join(root, "train", "000000.torch"))
+    os.makedirs(os.path.join(root, stage))
+    torch.save(scenes, os.path.join(root, stage, "000000.torch"))
     style_dir = os.path.join(root, "styles", "train")
     os.makedirs(style_dir)
     Image.open(io.BytesIO(jpeg((400, 600)))).save(os.path.join(style_dir, "style0.jpg"))
@@ -1324,6 +1648,17 @@ def main():
     torch.cuda.empty_cache()
     recovery = recovery_phase(card)
     launches["recovery"] = recovery.pop("launches")
+    recovery_fwd, recovery_bwd = recovery.pop("fwd"), recovery.pop("bwd")
+    torch.cuda.empty_cache()
+
+    # -- evaluation entry points: evaluate, compute_metrics, eval_pose -------
+    evaluation = evaluation_phase(card)
+    launches.update(evaluation.pop("launches"))
+    for path in ("evaluate", "eval_pose", "refine_recovery"):
+        for kernel in ("composite_fwd", "composite_bwd"):
+            if not launches[path][kernel]:
+                raise AssertionError(f"kernel {kernel} was not launched by {path}")
+    gc.collect()
     torch.cuda.empty_cache()
 
     # -- training: full width, f32 master weights, bf16 compute ---------------
@@ -1386,7 +1721,10 @@ def main():
     for what, res in (("dense cloud", res_dense), ("serving path's own inputs", res_main),
                       ("stage-1 training path's own inputs", res_train), ("alignment's own inputs", infer["fwd"]),
                       ("the video's first chunk", infer["video_fwd"]), ("the fit's first step's inputs", fit["fwd"]),
-                      ("the fit's orthographic projection", fit["ortho_fwd"])):
+                      ("the fit's orthographic projection", fit["ortho_fwd"]),
+                      ("pose recovery's first step", recovery_fwd),
+                      ("eval_pose's refinement, first step", evaluation["fwd"]),
+                      ("the refinement recovery's first step", evaluation["recovery_fwd"])):
         composite_device_ms(res)
         log(f"kernel composite_fwd, {what}: {res['ms']:.4f} ms on the device, {res['call_ms']:.4f} ms a call "
             f"(CUDA events, median of 20), plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.5f} ms "
@@ -1394,7 +1732,10 @@ def main():
         log(f"kernel composite_fwd, {what}: launched as {shape_text(res['launch'])} (profiler trace): "
             f"{res['launch']['blocks_per_tile']:g} blocks a tile, {res['launch']['threads_per_pixel']:g} threads a pixel")
     for what, res in (("dense cloud", bwd_dense), ("training path's own inputs", bwd_main),
-                      ("alignment's own inputs", infer["bwd"]), ("the fit's first step's inputs", fit["bwd"])):
+                      ("alignment's own inputs", infer["bwd"]), ("the fit's first step's inputs", fit["bwd"]),
+                      ("pose recovery's first step", recovery_bwd),
+                      ("eval_pose's refinement, first step", evaluation["bwd"]),
+                      ("the refinement recovery's first step", evaluation["recovery_bwd"])):
         composite_bwd_device_ms(res)
         log(f"kernel composite_bwd, {what}: {res['ms']:.4f} ms on the device (window sums "
             f"{res['phase_ms']['sums']:.4f} + gradients {res['phase_ms']['grad']:.4f}), {res['call_ms']:.4f} ms a "
@@ -1418,6 +1759,13 @@ def main():
     def count(kernel):
         return {path: v[kernel] for path, v in launches.items()}
 
+    def bwd_numbers(res):
+        return {**numbers(res), "phase_ms": res["phase_ms"], "windows": windows(res), "launch": res["launch"],
+                "max_abs_err": res["max_abs_err"], "max_rel_err": res["max_rel_err"]}
+
+    all_bwd = (bwd_dense, bwd_main, infer["bwd"], fit["bwd"], recovery_bwd, evaluation["bwd"],
+               evaluation["recovery_bwd"])
+
     kernels = [
         {
             "name": "composite_fwd",
@@ -1427,7 +1775,9 @@ def main():
             "launches": sum(count("composite_fwd").values()),
             "launches_by_path": count("composite_fwd"),
             "max_abs_err": max(res["max_abs_err"] for res in (res_dense, res_main, res_train, infer["fwd"],
-                                                               infer["video_fwd"], fit["fwd"], fit["ortho_fwd"])),
+                                                               infer["video_fwd"], fit["fwd"], fit["ortho_fwd"],
+                                                               recovery_fwd, evaluation["fwd"],
+                                                               evaluation["recovery_fwd"])),
             **{k: res_main[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
             "windows": res_main["windows"],
@@ -1438,6 +1788,10 @@ def main():
             "video_inputs": fwd_numbers(infer["video_fwd"]),
             "fit_inputs": {**fwd_numbers(fit["fwd"]), "max_abs_err": fit["fwd"]["max_abs_err"]},
             "ortho_inputs": {**fwd_numbers(fit["ortho_fwd"]), "max_abs_err": fit["ortho_fwd"]["max_abs_err"]},
+            "recovery_inputs": {**fwd_numbers(recovery_fwd), "max_abs_err": recovery_fwd["max_abs_err"]},
+            "refine_inputs": {**fwd_numbers(evaluation["fwd"]), "max_abs_err": evaluation["fwd"]["max_abs_err"]},
+            "refine_recovery_inputs": {**fwd_numbers(evaluation["recovery_fwd"]),
+                                       "max_abs_err": evaluation["recovery_fwd"]["max_abs_err"]},
         },
         {
             "name": "composite_bwd",
@@ -1446,8 +1800,8 @@ def main():
             "replaces": "styl3r_tpu/ops/rasterizer/pallas_backward.py:48",
             "launches": sum(count("composite_bwd").values()),
             "launches_by_path": count("composite_bwd"),
-            "max_abs_err": max(r["max_abs_err"] for r in (bwd_dense, bwd_main, infer["bwd"], fit["bwd"])),
-            "max_rel_err": max(r["max_rel_err"] for r in (bwd_dense, bwd_main, infer["bwd"], fit["bwd"])),
+            "max_abs_err": max(r["max_abs_err"] for r in all_bwd),
+            "max_rel_err": max(r["max_rel_err"] for r in all_bwd),
             **{k: bwd_main[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
             "phase_ms": bwd_main["phase_ms"],
@@ -1455,12 +1809,11 @@ def main():
             "launch": bwd_main["launch"],
             "dense_cloud": {**numbers(bwd_dense), "phase_ms": bwd_dense["phase_ms"], "windows": windows(bwd_dense),
                             "launch": bwd_dense["launch"]},
-            "align_inputs": {**numbers(infer["bwd"]), "phase_ms": infer["bwd"]["phase_ms"],
-                             "windows": windows(infer["bwd"]), "launch": infer["bwd"]["launch"],
-                             "max_abs_err": infer["bwd"]["max_abs_err"], "max_rel_err": infer["bwd"]["max_rel_err"]},
-            "fit_inputs": {**numbers(fit["bwd"]), "phase_ms": fit["bwd"]["phase_ms"], "windows": windows(fit["bwd"]),
-                           "launch": fit["bwd"]["launch"], "max_abs_err": fit["bwd"]["max_abs_err"],
-                           "max_rel_err": fit["bwd"]["max_rel_err"]},
+            "align_inputs": bwd_numbers(infer["bwd"]),
+            "fit_inputs": bwd_numbers(fit["bwd"]),
+            "recovery_inputs": bwd_numbers(recovery_bwd),
+            "refine_inputs": bwd_numbers(evaluation["bwd"]),
+            "refine_recovery_inputs": bwd_numbers(evaluation["recovery_bwd"]),
         },
     ]
     training = {f"stage{i}": {k: st[k] for k in ("ms", "examples_per_s", "peak_gib", "live_pairs")}
@@ -1473,8 +1826,10 @@ def main():
                                      "composite_bwd": infer["bwd"]["max_abs_err"]},
     }
     fit_summary = {k: v for k, v in fit.items() if k not in ("fwd", "bwd", "ortho_fwd")}
-    print(json.dumps({"kernels": kernels, "training": training, "inference": inference, "fit": fit_summary,
-                      "card": card}), flush=True)
+    evaluation_summary = {k: v for k, v in evaluation.items()
+                          if k not in ("fwd", "bwd", "recovery_fwd", "recovery_bwd")}
+    print(json.dumps({"kernels": kernels, "training": training, "inference": inference,
+                      "evaluation": evaluation_summary, "fit": fit_summary, "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -22,7 +22,11 @@ from ..device import DeviceLike
 
 
 class Benchmarker:
-    def __init__(self, device: DeviceLike = "cpu"):
+    """Timers on the clock of `device`, the device whose work the timed
+    blocks launch (no default: a CUDA run timed on the host's clock would
+    measure the enqueue)."""
+
+    def __init__(self, device: DeviceLike):
         self.device = torch.device(device)
         self.execution_times: Dict[str, List[float]] = defaultdict(list)
         self._group_sizes: Dict[str, List[int]] = defaultdict(list)

@@ -305,6 +305,8 @@ class Trainer:
         # The data stream's position after the last trained batch
         # (endless_batches); None for batches handed to fit.
         self._data_position: Optional[Dict[str, Any]] = None
+        # validate's 2-D AdaIN baseline, built at its first use.
+        self._adain = None
 
     def _build_loss_bundle(self, cfg: RootCfg) -> LossBundle:
         """The configured losses, with the perceptual nets' weights when
@@ -556,16 +558,13 @@ class Trainer:
         a strip along the trajectory between the first two targets, the
         Gaussians' orthographic projections (front/top/side), the cameras
         from above and their frustums in three planes, and a wobble video
-        around the first target. The 2-D AdaIN baseline is not ported."""
+        around the first target; and, for a stylized run with
+        `train.adain_baseline_weights`, the 2-D AdaIN baseline of context view
+        0 in the style (model_wrapper_style.py:260-308)."""
         from ..infer.trajectory import interpolate_extrinsics, interpolate_intrinsics, wobble_extrinsics
         from ..utils.drawing import draw_cameras
         from ..utils.viz import annotate, draw_cameras_topdown, hcat, ortho_projection_cameras, validation_gallery
 
-        if stylized and self.cfg.train.adain_baseline_weights:
-            raise NotImplementedError(
-                "train.adain_baseline_weights: the 2-D AdaIN baseline needs models/stylizers.py::AdaIN2D, "
-                "which ROADMAP queue 1, item 6 ports"
-            )
         h, w = batch.context_images.shape[2:4]
         render_kwargs = self._render_kwargs or render_settings(self.cfg, self.device)
         if not stylized:
@@ -640,6 +639,17 @@ class Trainer:
             ext_w = wobble_extrinsics(target_ext[0], n=n_wob, radius=0.05 * max(scene_scale, 1e-3))
             wob = render(ext_w.astype(np.float32), np.broadcast_to(target_k[0], (n_wob, 3, 3)).copy())
             self.logger.log_video(step, "val_wobble", host(wob.color[0]))
+
+        if stylized and self.cfg.train.adain_baseline_weights:
+            if self._adain is None:
+                from ..models.stylizers import AdaIN2D, convert_adain2d_checkpoint
+
+                self._adain = AdaIN2D()
+                self._adain.load_state_dict(convert_adain2d_checkpoint(
+                    load_torch_state_dict(self.cfg.train.adain_baseline_weights)))
+                self._adain.to(self.device).requires_grad_(False)
+            baseline = self._adain(batch.context_images[:1, 0], batch.style_image[:1])
+            self.logger.log_image(step, "val_adain_baseline", host(baseline[0]))
         return {"psnr": psnr, "ssim": ssim_val}
 
     def close(self):

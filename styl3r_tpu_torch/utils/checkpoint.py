@@ -37,12 +37,12 @@ def load_torch_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 def reject_directory(path) -> None:
     """The port reads checkpoint files; a directory is an orbax checkpoint of
-    the JAX package."""
+    the JAX package, which scripts/orbax_to_torch.py converts."""
     if Path(path).is_dir():
         raise ValueError(
-            f"{path} is a directory: the port does not read the JAX package's orbax checkpoints "
-            "(ROADMAP queue 1, item 4, plans a converter to a torch file); pass a torch .ckpt, .pth "
-            "or a checkpoint the port's trainer wrote"
+            f"{path} is a directory: the port does not read the JAX package's orbax checkpoints; convert "
+            f"it with `python scripts/orbax_to_torch.py {path} <out.pth>` (where JAX and orbax are "
+            "installed) and pass the .pth, or pass a torch .ckpt, .pth or a checkpoint the port's trainer wrote"
         )
 
 

@@ -1,4 +1,6 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card, on
+synthetic inputs and on each route's own (alignment, pose refinement, the
+fit, orthographic projections).
 
 These tests need an NVIDIA GPU and nvcc, and skip on a host without them.
 On a machine with a card (no JAX needed):
@@ -468,6 +470,72 @@ def test_each_alignment_step_launches_each_kernel_once(cuda):
         aligned = align_target_poses(gaussians, ext, k, near, far, images, hw, steps=steps, max_per_tile=512)
         assert (composite.launches - before[0], composite.backward_launches - before[1]) == (steps, steps)
         assert bool(torch.isfinite(aligned).all()) and float((aligned - ext).abs().max()) > 0
+
+
+def _refinement_step(device):
+    """The first step of refine_pose_photometric on one view of the
+    alignment scene (target rendered at one pose, start at another): its
+    compositor inputs at zero camera deltas, its target image, and the
+    plain forward's outputs."""
+    from styl3r_tpu_torch.ops.rasterizer.camera import make_raster_camera
+    from styl3r_tpu_torch.ops.rasterizer.render import composite_inputs
+
+    gaussians, ext, k, near, far, images, hw = _alignment_scene(device, v=1)
+    zeros = torch.zeros(1, 3, device=device)
+    cams = make_raster_camera(ext[0], k[0], near[0], far[0], hw, cam_rot_delta=zeros, cam_trans_delta=zeros)
+    inputs = composite_inputs(
+        cams, gaussians.means, None, gaussians.harmonics, gaussians.opacities, hw, zeros,
+        scales=gaussians.scales, rotations=gaussians.rotations, max_tiles_per_gaussian=8, max_per_tile=2048,
+    )
+    args = (inputs.attrs, inputs.starts, inputs.counts, inputs.backgrounds, inputs.grid, 2048, 1)
+    return args, images[0, 0]
+
+
+def test_kernels_match_plain_on_a_refinement_step(cuda):
+    """Both kernels on pose refinement's first step against their plain
+    versions, each pipeline on its own state: the forward within 1e-5, the
+    backward on the cotangents of the refinement's loss (MSE + 0.2 (1 -
+    SSIM), whose 11x11 filter gives nearly every pixel one) within 1e-4 of
+    each gradient column's largest magnitude, with exact zeros where no
+    window walked."""
+    from styl3r_tpu_torch.eval.pose import photometric_loss
+    from styl3r_tpu_torch.ops.rasterizer.render import _tiles_to_image
+
+    args, target = _refinement_step(cuda)
+    attrs, starts, counts, _, grid, max_per_tile, n_views = args
+    fwd, ref = composite.composite_tiles(*args), composite.composite_tiles_plain(*args)
+    assert torch.equal(fwd.n_done, ref.n_done) and int(fwd.n_done.max()) >= 2
+    for name in ("color", "alpha", "t_final"):
+        assert float((getattr(fwd, name) - getattr(ref, name)).abs().max()) <= 1e-5, name
+    assert float((fwd.depth - ref.depth).abs().max()) <= 1e-5 * max(1.0, float(ref.depth.abs().max()))
+    color = ref.color.detach().requires_grad_()
+    (dcolor,) = torch.autograd.grad(photometric_loss(_tiles_to_image(color, 1, *grid)[0], target), color)
+    assert float((dcolor != 0).any(-1).float().mean()) > 0.9
+    zero = torch.zeros_like(ref.depth)
+    ours = composite.composite_backward(attrs, starts, counts, fwd.n_done, fwd.t_final, dcolor, zero, zero, grid,
+                                        n_views, max_per_tile=max_per_tile)
+    plain = composite.composite_backward_plain(attrs, starts, counts, ref.n_done, ref.t_final, dcolor, zero, zero,
+                                               grid, n_views)
+    torch.cuda.synchronize()
+    walked = _walked(starts, counts, fwd.n_done, attrs.shape[0])
+    assert bool((ours[~walked] == 0).all()) and bool((plain[~walked] == 0).all())
+    for c in range(composite.N_GRAD):
+        scale = float(plain[:, c].abs().max())
+        assert scale > 0 or c == composite.A_D, c  # the loss takes no depth
+        assert float((ours[:, c] - plain[:, c]).abs().max()) <= 1e-4 * scale, c
+
+
+def test_each_refinement_step_launches_each_kernel_once(cuda):
+    from styl3r_tpu_torch.eval.pose import refine_pose_photometric
+
+    gaussians, ext, k, near, far, images, hw = _alignment_scene(cuda, v=1)
+    for steps in (1, 3):
+        before = (composite.launches, composite.backward_launches)
+        refined = refine_pose_photometric(gaussians, ext[0, 0], k[0, 0], images[0, 0], float(near[0, 0]),
+                                          float(far[0, 0]), steps=steps, max_per_tile=512)
+        assert (composite.launches - before[0], composite.backward_launches - before[1]) == (steps, steps)
+        assert refined.shape == (4, 4) and bool(torch.isfinite(refined).all())
+        assert float((refined - ext[0, 0]).abs().max()) > 0
 
 
 def test_forward_kernel_matches_plain_on_orthographic_inputs(cuda):
