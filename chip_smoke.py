@@ -71,11 +71,23 @@ fails:
      are read from the run's metrics.jsonl. Both kernels are held
      against their plain versions on the first step's own inputs and the
      forward on the first validation's orthographic projection;
- 10. kernel times: each kernel's device time (torch.profiler, summed over
+ 10. distillation: styl3r_tpu_torch.train.main.main on stage 0
+     (configs/experiment/re10k_style_distill.yaml: the full-width student and
+     a full-width DUSt3R/MASt3R teacher at random weights, frozen; Regr3D on
+     the student's point maps, encoder-only steps, no render and no
+     validation), 4 steps at b = 2 with a checkpoint every 2, then stage 1
+     with the term (re10k_2view_nvs.yaml with losses.distill=0.1), 3 steps
+     at b = 2, over the fit's synthetic chunks; every step runs the teacher
+     once, stage 1 launches each kernel once a step, and every checkpoint
+     must hold the student alone (its weights and AdamW moments, no teacher
+     key). Step and teacher times (CUDA events), peak memory and checkpoint
+     bytes are printed, and both kernels are held against their plain
+     versions on stage 1's first step's own inputs and cotangents;
+ 11. kernel times: each kernel's device time (torch.profiler, summed over
      the backward's two launches a call) and launch shape (grid, block and
      registers a thread, from the profiler's trace of the same calls), call
      time and plain version's time (CUDA events), beside its bound;
- 11. reference: a tiny-width model's Gaussians on the card agree with the
+ 12. reference: a tiny-width model's Gaussians on the card agree with the
      same model's on the CPU (whose agreement with the JAX package the CPU
      tests show).
 The line before the last is a JSON object with every kernel's numbers; the
@@ -1523,6 +1535,231 @@ def fit_phase(card, batch_size=2, steps=4):
     )
 
 
+DISTILL_CONFIG = "configs/experiment/re10k_style_distill.yaml"
+DISTILL_STAGE1_CONFIG = "configs/experiment/re10k_2view_nvs.yaml"
+
+
+class TeacherProbe:
+    """Times each forward of the distillation teacher with CUDA events (read
+    after the run) and keeps the first call's outputs."""
+
+    def __init__(self):
+        self.events, self.first = [], None
+
+    @contextlib.contextmanager
+    def attached(self):
+        import torch
+
+        from styl3r_tpu_torch.models.distiller import Dust3RTeacher
+
+        probe, forward = self, Dust3RTeacher.forward
+
+        def timed(module, images):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = forward(module, images)
+            end.record()
+            probe.events.append((start, end))
+            probe.first = probe.first or {k: v.detach().clone() for k, v in out.items()}
+            return out
+
+        Dust3RTeacher.forward = timed
+        try:
+            yield self
+        finally:
+            Dust3RTeacher.forward = forward
+
+    def ms(self):
+        return [start.elapsed_time(end) for start, end in self.events]
+
+
+def student_checkpoint(path, n_params):
+    """A trainer checkpoint's contents, checked to hold the student alone:
+    every weight under `encoder.`, the full-width model's parameter count,
+    and AdamW moments for each of its weights (stage 0 and 1 train them all).
+    Returns its bytes; the file is deleted after the check."""
+    import torch
+
+    size = os.path.getsize(path)
+    ckpt = torch.load(path, map_location="cpu", weights_only=True, mmap=True)
+    model = ckpt["model"]
+    strangers = [k for k in model if not k.startswith("encoder.")]
+    count = sum(v.numel() for v in model.values())
+    tensors, moments = len(model), len(ckpt["optimizer"]["adamw"]["state"])
+    del ckpt, model
+    os.remove(path)
+    if strangers or count != n_params or moments != tensors:
+        raise AssertionError(f"distill: {path} holds {strangers[:3]} outside the student, {count} weights "
+                             f"(expected {n_params}), moments for {moments} tensors")
+    return size
+
+
+def distill_phase(card, batch_size=2, steps=4, stage1_steps=3, hw=(256, 256)):
+    """The distillation stage through the training entry point,
+    styl3r_tpu_torch.train.main.main, full width, on synthetic chunks:
+    (a) stage 0 (re10k_style_distill.yaml: the frozen MASt3R teacher, at
+    random weights drawn on the CPU since no MASt3R weights are in the repo;
+    Regr3D on the student's point maps, encoder-only steps, the backbone at
+    0.1x lr), `steps` steps at b = `batch_size` (the config's 32 cut) with a
+    checkpoint every 2, keeping 1, and a validation due every 2 that stage 0
+    skips; (b) stage 1 with the term (re10k_2view_nvs.yaml with
+    losses.distill=0.1, the config's renderer caps: no pair cap),
+    `stage1_steps` steps at b = `batch_size`. Each step runs the teacher
+    once; stage 0 launches no compositor kernel, stage 1 each kernel once a
+    step. Every checkpoint must hold the student alone. Both kernels are held
+    against their plain versions on stage 1's first step's own inputs and
+    cotangents (MSE + LPIPS + 0.1 x Regr3D)."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from styl3r_tpu_torch.models.distiller import Dust3RTeacher
+    from styl3r_tpu_torch.ops.rasterizer import composite
+    from styl3r_tpu_torch.train import main as train_main
+
+    n_params = 1_043_732_697
+    with torch.device("meta"):
+        n_teacher = sum(p.numel() for p in Dust3RTeacher().parameters())
+    # f32 weights and two Adam moments a parameter; a run keeps up to two
+    # checkpoints and a third being written.
+    need = 3 * 12 * n_params + 2**30
+    with tempfile.TemporaryDirectory(prefix="styl3r_distill_") as tmp:
+        free = shutil.disk_usage(tmp).free
+        if free < need:
+            raise AssertionError(f"distill: {free / 2**30:.1f} GiB free under {tmp}, the checkpoints need "
+                                 f"{need / 2**30:.1f} GiB")
+        root = os.path.join(tmp, "re10k")
+        fit_chunks(root)
+
+        def run(config, out, max_steps, *extra):
+            args = ["--config", os.path.join(ROOT, config), "--max-steps", str(max_steps),
+                    f"datasets.0.roots=[{root}]", f"datasets.0.style_root={os.path.join(root, 'styles')}",
+                    f"datasets.0.input_image_shape=[{hw[0]},{hw[1]}]", f"train.batch_size={batch_size}",
+                    "train.log_every_n_steps=1", "checkpointing.save_top_k=1", f"checkpointing.output_dir={out}",
+                    *extra]
+            teacher, kernels = TeacherProbe(), FitProbe()
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            composite.launches = composite.backward_launches = 0
+            t0 = time.perf_counter()
+            with teacher.attached(), kernels.attached():
+                state = train_main.main(args)
+                torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}
+            rec = fit_metrics(out)
+            train_rec = rec["train"]
+            if state.step != max_steps or [r["step"] for r in train_rec] != list(range(1, max_steps + 1)):
+                raise AssertionError(f"distill: {state.step} steps, logged {[r['step'] for r in train_rec]}")
+            if not all(math.isfinite(r["loss"]) and r["distill"] > 0 for r in train_rec):
+                raise AssertionError(f"distill: losses {[(r['loss'], r['distill']) for r in train_rec]}")
+            if len(teacher.events) != max_steps:
+                raise AssertionError(f"distill: the teacher ran {len(teacher.events)} times in {max_steps} steps")
+            return dict(state=state, seconds=seconds, launches=launches, rec=rec, teacher=teacher, kernels=kernels,
+                        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+        def checkpoints(out):
+            ckpt_dir = os.path.join(out, "checkpoints")
+            return {name: student_checkpoint(os.path.join(ckpt_dir, name), n_params)
+                    for name in sorted(os.listdir(ckpt_dir))}
+
+        def summary(res):
+            step_ms = [r["step_ms"] for r in res["rec"]["train"]]
+            return dict(step_ms=step_ms, teacher_ms=res["teacher"].ms(), peak_gib=res["peak_gib"],
+                        seconds=res["seconds"], launches=res["launches"],
+                        losses=[r["loss"] for r in res["rec"]["train"]],
+                        distill=[r["distill"] for r in res["rec"]["train"]])
+
+        # -- (a) stage 0 ------------------------------------------------------------
+        out0 = os.path.join(tmp, "stage0")
+        res0 = run(DISTILL_CONFIG, out0, steps, "train.val_every_n_steps=2", "checkpointing.every_n_train_steps=2")
+        stage0 = summary(res0)
+        if res0["rec"]["val"] or res0["rec"]["validate"] or os.path.exists(os.path.join(out0, "val_comparison")):
+            raise AssertionError("distill: stage 0 ran a validation")
+        if any(res0["launches"].values()):
+            raise AssertionError(f"distill: stage 0 launched the compositor {res0['launches']}")
+        if any(set(r) & {"mse", "live_pairs"} for r in res0["rec"]["train"]):
+            raise AssertionError("distill: stage 0 rendered")
+        if any(r["loss"] != r["distill"] for r in res0["rec"]["train"]):
+            raise AssertionError("distill: stage 0's loss is not the distillation term alone")
+        save = res0["rec"]["save"]
+        stage0["checkpoint_seconds"] = [r["checkpoint_seconds"] for r in save]
+        stage0["checkpoint_bytes"] = checkpoints(out0)
+        # Every 2 steps, then the final one.
+        if sorted(stage0["checkpoint_bytes"]) != ["final.pt", f"step_{steps}.pt"] or len(save) != steps // 2 + 1:
+            raise AssertionError(f"distill: stage 0 checkpoints {stage0['checkpoint_bytes']}, {len(save)} saves")
+        first = res0["teacher"].first
+        conf_share = float((first["conf_1"] >= 3.0).float().mean())
+        if not all(bool(torch.isfinite(v).all()) for v in first.values()) or first["pts3d_1"].shape != (
+                batch_size, *hw, 3):
+            raise AssertionError("distill: the teacher's first output is non-finite or misshapen")
+        shutil.rmtree(out0)
+        ckpt_bytes = stage0["checkpoint_bytes"]["final.pt"]
+        log(f"distill stage 0: {steps} steps of re10k_style_distill.yaml at b = {batch_size} (2 context views at "
+            f"{hw[0]}x{hw[1]}; student {n_params:,} parameters with f32 weights, a bf16 backbone at 0.1x lr; teacher "
+            f"{n_teacher:,} parameters in f32, drawn at random) in {stage0['seconds']:.1f} s with the models' builds "
+            f"and {len(save)} checkpoints: {statistics.median(stage0['step_ms'][1:]):.2f} ms/step (median of steps "
+            f"2-{steps}; the trainer's CUDA events), the first {stage0['step_ms'][0]:.2f} ms; the teacher's forward "
+            f"{statistics.median(stage0['teacher_ms'][1:]):.2f} ms (median of calls 2-{steps}; the first "
+            f"{stage0['teacher_ms'][0]:.2f}); peak memory {stage0['peak_gib']:.2f} GiB; loss "
+            f"{stage0['losses'][0]:.5f} -> {stage0['losses'][-1]:.5f}; {conf_share:.3f} of the teacher's first "
+            f"view-1 points at conf >= 3; no validation; launches fwd 0 bwd 0 [{card}]")
+        log(f"distill stage 0: checkpoint {ckpt_bytes} bytes ({ckpt_bytes / 2**30:.2f} GiB: f32 weights and AdamW "
+            f"moments of every student parameter, no teacher key), saved in "
+            f"{', '.join(f'{t:.2f}' for t in stage0['checkpoint_seconds'])} s [{card}]")
+
+        # -- (b) stage 1 with the term ------------------------------------------------
+        out1 = os.path.join(tmp, "stage1")
+        res1 = run(DISTILL_STAGE1_CONFIG, out1, stage1_steps, "losses.distill=0.1", "train.val_every_n_steps=100",
+                   "checkpointing.every_n_train_steps=100")
+        stage1 = summary(res1)
+        train_rec = res1["rec"]["train"]
+        if (res1["launches"]["composite_fwd"], res1["launches"]["composite_bwd"]) != (stage1_steps, stage1_steps):
+            raise AssertionError(f"distill: stage 1 launches {res1['launches']}, expected {stage1_steps} each")
+        for r in train_rec:
+            if not r["loss"] >= r["mse"] + r["distill"] - 1e-6 * abs(r["loss"]):
+                raise AssertionError(f"distill: stage 1's loss {r['loss']} lacks mse {r['mse']} + distill "
+                                     f"{r['distill']}")
+        stage1["checkpoint_bytes"] = checkpoints(out1)
+        stage1["live_pairs"], stage1["pair_slots"] = int(train_rec[0]["live_pairs"]), int(train_rec[0]["pair_slots"])
+        stage1["mse"] = [r["mse"] for r in train_rec]
+
+        # -- the kernels on stage 1's first step's own inputs ----------------------
+        probe = res1["kernels"]
+        bwd_args, bwd_max = probe.bwd
+        inputs, max_per_tile = compositor_inputs(probe.train_fwd[0])
+        n_views = inputs.n_views
+        with torch.no_grad():
+            fwd_res = check_composite(inputs, max_per_tile)
+            own, = [c for c in probe.train_fwd if c[0].data_ptr() == bwd_args[0].data_ptr()]
+            bwd_inputs, _ = compositor_inputs(own)
+            bwd_res = check_composite_bwd(bwd_inputs, bwd_max, *bwd_args[5:8])
+        del res1, probe, bwd_args, own, inputs, bwd_inputs
+        log(f"distill stage 1: {stage1_steps} steps of re10k_2view_nvs.yaml with losses.distill=0.1 at b = "
+            f"{batch_size} (2 context views + 4 targets at {hw[0]}x{hw[1]}, MSE + LPIPS at random weights + 0.1 x Regr3D, "
+            f"the config's caps: max_per_tile {max_per_tile}, no pair cap) in {stage1['seconds']:.1f} s with the "
+            f"models' builds and the final checkpoint: {statistics.median(stage1['step_ms'][1:]):.2f} ms/step "
+            f"(median of steps 2-{stage1_steps}), the first {stage1['step_ms'][0]:.2f} ms; the teacher's forward "
+            f"{statistics.median(stage1['teacher_ms'][1:]):.2f} ms; peak memory {stage1['peak_gib']:.2f} GiB; "
+            f"distill {stage1['distill'][0]:.5f}, mse {stage1['mse'][0]:.5f} at the first step; live pairs "
+            f"{stage1['live_pairs']} of {stage1['pair_slots']} slots; launches fwd "
+            f"{stage1['launches']['composite_fwd']} bwd {stage1['launches']['composite_bwd']}; final checkpoint "
+            f"{stage1['checkpoint_bytes']['final.pt']} bytes, no teacher key [{card}]")
+        log(f"kernel composite_fwd, stage 1 + distill's first step's own inputs ({n_views} fused "
+            f"views): agrees with the plain version, max err {fwd_res['max_abs_err']:.3g}; {fwd_windows_line(fwd_res)}")
+        log(f"kernel composite_bwd, stage 1 + distill's first step's own inputs and cotangents: agrees with the "
+            f"plain version, max err {bwd_res['max_abs_err']:.3g} ({bwd_res['max_rel_err']:.3g} of its column's "
+            f"largest gradient), {bwd_res['pairs_with_grad']} pairs with a gradient of {bwd_res['walked']} walked, "
+            f"up to {bwd_res['n_done_max']} windows; {bwd_res['zero_mismatch']} values 0 in one version only, at "
+            f"most {bwd_res['zero_mismatch_max']:.3g}; two calls bitwise equal")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(stage0=stage0, stage1=stage1, teacher_params=n_teacher, conf_share=conf_share,
+                batch_size=batch_size, fwd=fwd_res, bwd=bwd_res)
+
+
 def main():
     import torch
 
@@ -1716,6 +1953,14 @@ def main():
         if not launches["fit"][kernel]:
             raise AssertionError(f"kernel {kernel} was not launched by the fit")
 
+    # -- the distillation stage: stage 0, then stage 1 with the term ---------
+    distill = distill_phase(card)
+    launches["distill_stage0"] = distill["stage0"]["launches"]
+    launches["distill_stage1"] = distill["stage1"]["launches"]
+    for kernel in ("composite_fwd", "composite_bwd"):
+        if not launches["distill_stage1"][kernel]:
+            raise AssertionError(f"kernel {kernel} was not launched by stage 1 with the distillation term")
+
     # -- kernel times: device time from the profiler, after the paths'
     # timing, which the profiler's attached tracing would slow down ---------
     for what, res in (("dense cloud", res_dense), ("serving path's own inputs", res_main),
@@ -1724,7 +1969,8 @@ def main():
                       ("the fit's orthographic projection", fit["ortho_fwd"]),
                       ("pose recovery's first step", recovery_fwd),
                       ("eval_pose's refinement, first step", evaluation["fwd"]),
-                      ("the refinement recovery's first step", evaluation["recovery_fwd"])):
+                      ("the refinement recovery's first step", evaluation["recovery_fwd"]),
+                      ("stage 1 + distill's first step", distill["fwd"])):
         composite_device_ms(res)
         log(f"kernel composite_fwd, {what}: {res['ms']:.4f} ms on the device, {res['call_ms']:.4f} ms a call "
             f"(CUDA events, median of 20), plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.5f} ms "
@@ -1735,7 +1981,8 @@ def main():
                       ("alignment's own inputs", infer["bwd"]), ("the fit's first step's inputs", fit["bwd"]),
                       ("pose recovery's first step", recovery_bwd),
                       ("eval_pose's refinement, first step", evaluation["bwd"]),
-                      ("the refinement recovery's first step", evaluation["recovery_bwd"])):
+                      ("the refinement recovery's first step", evaluation["recovery_bwd"]),
+                      ("stage 1 + distill's first step", distill["bwd"])):
         composite_bwd_device_ms(res)
         log(f"kernel composite_bwd, {what}: {res['ms']:.4f} ms on the device (window sums "
             f"{res['phase_ms']['sums']:.4f} + gradients {res['phase_ms']['grad']:.4f}), {res['call_ms']:.4f} ms a "
@@ -1764,7 +2011,7 @@ def main():
                 "max_abs_err": res["max_abs_err"], "max_rel_err": res["max_rel_err"]}
 
     all_bwd = (bwd_dense, bwd_main, infer["bwd"], fit["bwd"], recovery_bwd, evaluation["bwd"],
-               evaluation["recovery_bwd"])
+               evaluation["recovery_bwd"], distill["bwd"])
 
     kernels = [
         {
@@ -1777,7 +2024,7 @@ def main():
             "max_abs_err": max(res["max_abs_err"] for res in (res_dense, res_main, res_train, infer["fwd"],
                                                                infer["video_fwd"], fit["fwd"], fit["ortho_fwd"],
                                                                recovery_fwd, evaluation["fwd"],
-                                                               evaluation["recovery_fwd"])),
+                                                               evaluation["recovery_fwd"], distill["fwd"])),
             **{k: res_main[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
             "windows": res_main["windows"],
@@ -1792,6 +2039,7 @@ def main():
             "refine_inputs": {**fwd_numbers(evaluation["fwd"]), "max_abs_err": evaluation["fwd"]["max_abs_err"]},
             "refine_recovery_inputs": {**fwd_numbers(evaluation["recovery_fwd"]),
                                        "max_abs_err": evaluation["recovery_fwd"]["max_abs_err"]},
+            "distill_inputs": {**fwd_numbers(distill["fwd"]), "max_abs_err": distill["fwd"]["max_abs_err"]},
         },
         {
             "name": "composite_bwd",
@@ -1814,6 +2062,7 @@ def main():
             "recovery_inputs": bwd_numbers(recovery_bwd),
             "refine_inputs": bwd_numbers(evaluation["bwd"]),
             "refine_recovery_inputs": bwd_numbers(evaluation["recovery_bwd"]),
+            "distill_inputs": bwd_numbers(distill["bwd"]),
         },
     ]
     training = {f"stage{i}": {k: st[k] for k in ("ms", "examples_per_s", "peak_gib", "live_pairs")}
@@ -1828,8 +2077,10 @@ def main():
     fit_summary = {k: v for k, v in fit.items() if k not in ("fwd", "bwd", "ortho_fwd")}
     evaluation_summary = {k: v for k, v in evaluation.items()
                           if k not in ("fwd", "bwd", "recovery_fwd", "recovery_bwd")}
+    distill_summary = {k: v for k, v in distill.items() if k not in ("fwd", "bwd")}
     print(json.dumps({"kernels": kernels, "training": training, "inference": inference,
-                      "evaluation": evaluation_summary, "fit": fit_summary, "card": card}), flush=True)
+                      "evaluation": evaluation_summary, "fit": fit_summary, "distill": distill_summary,
+                      "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -1,11 +1,21 @@
 from .decoder import DecoderOutput, render_gaussians
-from .encoder import Styl3rEncoder
+from .distiller import Dust3RTeacher
+from .encoder import NoPoSplatMultiEncoder, Styl3rEncoder, Styl3rTokenStyleEncoder2View
+from .registry import get_backbone, get_decoder, get_distiller, get_encoder, get_head
 from .styl3r import Batch, Styl3rModel, batch_to, normalize_images, transpose_intrinsics
 
 __all__ = [
     "DecoderOutput",
     "render_gaussians",
+    "Dust3RTeacher",
+    "NoPoSplatMultiEncoder",
     "Styl3rEncoder",
+    "Styl3rTokenStyleEncoder2View",
+    "get_backbone",
+    "get_decoder",
+    "get_distiller",
+    "get_encoder",
+    "get_head",
     "Batch",
     "Styl3rModel",
     "batch_to",

@@ -1,10 +1,12 @@
-"""CroCo ViT-L encoder stacks: the multiview geometry backbone and the token
-stylizer (counterpart of styl3r_tpu/models/croco.py; reference
-`backbone_croco_multiview.py` and `token_stylizer.py`).
+"""CroCo ViT-L encoder stacks: the multiview geometry backbone, the
+encoder-only backbone, the token stylizer and the 2-view structure builder
+(counterpart of styl3r_tpu/models/croco.py; reference
+`backbone_croco_multiview.py`, `backbone_croco_enc.py`, `token_stylizer.py`
+and `structure_builder.py`).
 
-Both stacks hold their encoder's `patch_embed`, `enc_blocks` and `enc_norm`
-directly, as the reference modules do, so their state-dict keys are the
-reference's (`backbone.enc_blocks.N.attn.qkv.weight`, ...).
+The encoder stacks hold their encoder's `patch_embed`, `enc_blocks` and
+`enc_norm` directly, as the reference modules do, so their state-dict keys
+are the reference's (`backbone.enc_blocks.N.attn.qkv.weight`, ...).
 """
 
 from __future__ import annotations
@@ -149,6 +151,34 @@ class MultiViewCrocoBackbone(CrocoVitEncoder):
         return outputs
 
 
+class CrocoEncBackbone(CrocoVitEncoder):
+    """Encoder-only CroCo backbone (reference AsymmetricCroCoEnc,
+    backbone_croco_enc.py:61-226): the shared encoder runs on each view with
+    the optional intrinsics token; no cross-view decoder. Returns (feat,
+    pos), (b, v, l, enc_dim) and (b, v, l, 2), with the intrinsics token
+    kept (the callers trim it)."""
+
+    def __init__(
+        self, patch_size: int = 16, use_intrinsics_token: bool = True,
+        enc_depth: int = ENC_DEPTH, enc_dim: int = ENC_DIM, enc_heads: int = ENC_HEADS,
+    ):
+        super().__init__(enc_depth, enc_dim, enc_heads, patch_size)
+        self.use_intrinsics_token = use_intrinsics_token
+        if use_intrinsics_token:
+            self.intrinsic_encoder = nn.Linear(9, enc_dim)
+
+    def forward(self, images: Tensor, intrinsics: Optional[Tensor] = None) -> Tuple[Tensor, Tensor]:
+        b, v, h, w, _ = images.shape
+        extra = None
+        if self.use_intrinsics_token:
+            if intrinsics is None:
+                raise ValueError("backbone configured with intrinsics token; pass intrinsics")
+            extra = self.intrinsic_encoder(intrinsics.reshape(b * v, 9).to(self.dtype))[:, None]
+        feat, pos = self.encode(images.reshape(b * v, h, w, 3), extra)
+        l = feat.shape[1]
+        return feat.reshape(b, v, l, self.enc_dim), pos.reshape(b, v, l, 2)
+
+
 class TokenStylizer(CrocoVitEncoder):
     """Style-image encoder + cross-attention decoder blocks where the
     flattened content tokens of all views query the style tokens. Receives
@@ -183,6 +213,40 @@ class TokenStylizer(CrocoVitEncoder):
         y = self.decoder_embed(style_feat)
         for blk in self.dec_blocks:
             x, _ = blk(x, y, xpos, style_pos)
+            outputs.append(x.reshape(b, v, l, d))
+        outputs[-1] = self.dec_norm(x).reshape(b, v, l, d)
+        return [t[:, :, :-1] for t in outputs]
+
+
+class StructureBuilder(nn.Module):
+    """The structure branch of the 2-view token-style encoder (reference
+    structure_builder.py:36-142): both views' encoder tokens, projected to
+    the decoder width, go through RoPE self-attention blocks over their
+    concatenation. Returns the (dec_depth + 1)-level per-view pyramid
+    [encoder tokens, block outputs (the last normed)], each (b, 2, l-1, c)
+    with the trailing intrinsics token trimmed."""
+
+    def __init__(
+        self, enc_dim: int = ENC_DIM, dec_dim: int = DEC_DIM, dec_depth: int = DEC_DEPTH,
+        dec_heads: int = DEC_HEADS,
+    ):
+        super().__init__()
+        self.dec_dim = dec_dim
+        self.decoder_embed = nn.Linear(enc_dim, dec_dim)
+        self.dec_blocks = nn.ModuleList(
+            [Block(dec_dim, dec_heads, rope_base=ROPE_BASE) for _ in range(dec_depth)]
+        )
+        self.dec_norm = layer_norm(dec_dim)
+
+    def forward(self, feats: Tensor, pos: Tensor) -> List[Tensor]:
+        """feats: (b, 2, l, enc_dim); pos: (b, 2, l, 2)."""
+        b, v, l, _ = feats.shape
+        d = self.dec_dim
+        outputs: List[Tensor] = [feats]
+        x = self.decoder_embed(feats).reshape(b, v * l, d)
+        xpos = pos.reshape(b, v * l, 2)
+        for blk in self.dec_blocks:
+            x = blk(x, xpos)
             outputs.append(x.reshape(b, v, l, d))
         outputs[-1] = self.dec_norm(x).reshape(b, v, l, d)
         return [t[:, :, :-1] for t in outputs]

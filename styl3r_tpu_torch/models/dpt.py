@@ -166,7 +166,9 @@ def _nhwc(x: Tensor) -> Tensor:
 class DPTPts3dHead(nn.Module):
     """'dpt' head: regression tower -> (b, h, w, 3) pts3d via the exp
     postprocess. Reference head Sequential indices 0 (conv), 2 (conv),
-    4 (1x1 conv)."""
+    4 (1x1 conv). With `with_conf` (the DUSt3R teacher's heads) the 1x1 conv
+    has a 4th channel, returned as a confidence map conf = 1 + exp(min(x,
+    20)) beside the points."""
 
     def __init__(
         self,
@@ -178,15 +180,17 @@ class DPTPts3dHead(nn.Module):
         patch_size: int = 16,
         pts3d_bound: Optional[float] = None,
         trunk_dtype: Optional[torch.dtype] = None,
+        with_conf: bool = False,
     ):
         super().__init__()
         self.pts3d_bound = pts3d_bound
+        self.with_conf = with_conf
         self.dpt = DPTTrunk(hook_dims, hooks, layer_dims, feature_dim, patch_size, trunk_dtype)
         self.dpt.head = nn.ModuleDict(
             {
                 "0": nn.Conv2d(feature_dim, feature_dim // 2, 3, padding=1),
                 "2": nn.Conv2d(feature_dim // 2, last_dim, 3, padding=1),
-                "4": nn.Conv2d(last_dim, 3, 1),
+                "4": nn.Conv2d(last_dim, 3 + int(with_conf), 1),
             }
         )
 
@@ -195,13 +199,69 @@ class DPTPts3dHead(nn.Module):
         self.dpt.scratch.to(dtype)
         self.dpt.head["0"].to(dtype)
 
-    def forward(self, tokens: List[Tensor], image_size: Tuple[int, int]) -> Tensor:
+    def forward(self, tokens: List[Tensor], image_size: Tuple[int, int]):
         head = self.dpt.head
         with self.dpt.precision(tokens[0].device.type):
             x = head["0"](self.dpt(tokens, image_size))
         x = upsample2x(x).to(head["2"].weight.dtype)
-        x = head["4"](F.relu(head["2"](x)))
-        return reg_dense_pts3d(_nhwc(x), bound=self.pts3d_bound)
+        x = _nhwc(head["4"](F.relu(head["2"](x))))
+        pts = reg_dense_pts3d(x[..., :3], bound=self.pts3d_bound)
+        if self.with_conf:
+            return pts, conf_from_raw(x[..., 3])
+        return pts
+
+
+def conf_from_raw(x: Tensor) -> Tensor:
+    """The 'exp' confidence postprocess with vmin 1: 1 + exp(min(x, 20))."""
+    return 1.0 + torch.exp(torch.clamp(x, max=20.0))
+
+
+def _pixel_shuffle_tokens(feat: Tensor, nh: int, nw: int, p: int) -> Tensor:
+    """(b, nh*nw, c*p*p) token features -> (b, nh*p, nw*p, c) NHWC, in
+    `view(b, c*p*p, nh, nw)` + `F.pixel_shuffle(p)`'s channel order (feature
+    index c_out*p*p + dy*p + dx)."""
+    b, _, f = feat.shape
+    x = feat.transpose(1, 2).reshape(b, f, nh, nw)
+    return _nhwc(F.pixel_shuffle(x, p))
+
+
+class LinearPts3dHead(nn.Module):
+    """'linear' pts3d head (reference heads/linear_head.py:12-40): one linear
+    map from the last decoder level to p*p*(3 [+ conf]) values a token,
+    pixel-shuffled to full resolution, exp postprocess. No release config
+    uses it; it completes the head registry."""
+
+    def __init__(self, dec_dim: int, patch_size: int = 16, with_conf: bool = False):
+        super().__init__()
+        self.patch_size = patch_size
+        self.with_conf = with_conf
+        self.proj = nn.Linear(dec_dim, (3 + int(with_conf)) * patch_size**2)
+
+    def forward(self, tokens: List[Tensor], image_size: Tuple[int, int]):
+        h, w = image_size
+        p = self.patch_size
+        img = _pixel_shuffle_tokens(self.proj(tokens[-1]), h // p, w // p, p)
+        pts = reg_dense_pts3d(img[..., :3])
+        if self.with_conf:
+            return pts, conf_from_raw(img[..., 3])
+        return pts
+
+
+class LinearGSHead(nn.Module):
+    """'linear' Gaussian-parameter head (reference heads/linear_head.py:43-76):
+    one linear map to out_channels*p*p values a token (2 xy offsets + 1
+    opacity + the raw Gaussian channels in the reference), pixel-shuffled;
+    raw output, the adapter applies the activations."""
+
+    def __init__(self, dec_dim: int, out_channels: int, patch_size: int = 16):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = nn.Linear(dec_dim, out_channels * patch_size**2)
+
+    def forward(self, tokens: List[Tensor], image_size: Tuple[int, int]) -> Tensor:
+        h, w = image_size
+        p = self.patch_size
+        return _pixel_shuffle_tokens(self.proj(tokens[-1]), h // p, w // p, p)
 
 
 class GSParamsHead(nn.Module):

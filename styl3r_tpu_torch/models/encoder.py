@@ -1,9 +1,16 @@
-"""The production encoder: unposed context images + style image -> 3D
-Gaussians (counterpart of styl3r_tpu/models/encoder.py::Styl3rEncoder;
-reference `encoder_noposplat_multi_token_style.py:46-263`).
+"""The encoders: unposed context images (+ a style image) -> 3D Gaussians
+(counterpart of styl3r_tpu/models/encoder.py).
 
-View 0 goes through head1 / gaussian_param_head, views 1.. are folded into
-the batch for head2 / gaussian_param_head2, as in the JAX encoder.
+  * Styl3rEncoder, the production encoder (reference
+    `encoder_noposplat_multi_token_style.py:46-263`): view 0 goes through
+    head1 / gaussian_param_head, views 1.. are folded into the batch for
+    head2 / gaussian_param_head2, as in the JAX encoder;
+  * Styl3rTokenStyleEncoder2View, the 2-view token-style encoder
+    (`encoder_noposplat_token_style.py:150-283`);
+  * NoPoSplatMultiEncoder, the style-free N-view encoder
+    (`encoder_noposplat_multi.py:126-233`).
+
+Each module keeps the reference's key names (`downstream_head1`, ...).
 """
 
 from __future__ import annotations
@@ -16,9 +23,42 @@ from torch import Tensor
 
 from ..geometry.gaussians import Gaussians
 from .adapter import d_sh, map_pdf_to_opacity, raw_gaussian_channels, unified_gaussian_adapter
-from .croco import MultiViewCrocoBackbone, TokenStylizer
+from .croco import CrocoEncBackbone, MultiViewCrocoBackbone, StructureBuilder, TokenStylizer
 from .dpt import DPTGSHead, DPTGSSHHead, DPTPts3dHead
 from .precision import compute_in
+
+
+def _head_dims(enc_dim, dec_dim, dec_depth, head_feature_dim, head_layer_dims, patch_size, head_trunk_dtype):
+    """The DPT heads' shared arguments: hooks [0, l/2, 3l/4, l] over the
+    (dec_depth + 1)-level pyramid, whose level 0 is the encoder's tokens."""
+    l2 = dec_depth
+    return dict(
+        hook_dims=(enc_dim, dec_dim, dec_dim, dec_dim),
+        hooks=(0, l2 * 2 // 4, l2 * 3 // 4, l2),
+        feature_dim=head_feature_dim,
+        layer_dims=head_layer_dims,
+        patch_size=patch_size,
+        trunk_dtype=head_trunk_dtype,
+    )
+
+
+def _adapt(raw: Tensor, pts: Tensor, encoder: nn.Module, global_step: int, return_aux: bool):
+    """Raw (b, v, h, w, 1 + channels) head outputs and (b, v, h, w, 3) points
+    -> Gaussians through the unified adapter (+ the aux dict)."""
+    b, v, h, w, _ = raw.shape
+    densities = torch.sigmoid(raw[..., 0])
+    opacities = map_pdf_to_opacity(
+        densities, global_step, encoder.opacity_initial, encoder.opacity_final, encoder.opacity_warm_up,
+    )
+    gaussians = unified_gaussian_adapter(
+        means=pts.reshape(b, v * h * w, 3),
+        opacities=opacities.reshape(b, v * h * w),
+        raw=raw[..., 1:].reshape(b, v * h * w, -1),
+        sh_degree=encoder.sh_degree,
+    )
+    if return_aux:
+        return gaussians, {"pts3d": pts, "depths": pts[..., 2], "densities": densities}
+    return gaussians
 
 
 class Styl3rEncoder(nn.Module):
@@ -64,15 +104,8 @@ class Styl3rEncoder(nn.Module):
         )
         self.backbone = MultiViewCrocoBackbone(patch_size=patch_size, **dims)
         self.token_stylizer = TokenStylizer(patch_size=patch_size, **dims)
-        # DPT hooks [0, l/2, 3l/4, l] over the (dec_depth + 1)-level pyramid.
-        l2 = dec_depth
-        head_dims = dict(
-            hook_dims=(enc_dim, dec_dim, dec_dim, dec_dim),
-            hooks=(0, l2 * 2 // 4, l2 * 3 // 4, l2),
-            feature_dim=head_feature_dim,
-            layer_dims=head_layer_dims,
-            patch_size=patch_size,
-            trunk_dtype=head_trunk_dtype,
+        head_dims = _head_dims(
+            enc_dim, dec_dim, dec_depth, head_feature_dim, head_layer_dims, patch_size, head_trunk_dtype
         )
         self.downstream_head1 = DPTPts3dHead(last_dim=head_last_dim, pts3d_bound=pts3d_bound, **head_dims)
         self.downstream_head2 = DPTPts3dHead(last_dim=head_last_dim, pts3d_bound=pts3d_bound, **head_dims)
@@ -105,17 +138,22 @@ class Styl3rEncoder(nn.Module):
         return_aux: bool = False,
         transpose_maps: bool = False,
         generator: Optional[torch.Generator] = None,
-    ) -> Gaussians | Tuple[Gaussians, Dict[str, Tensor]]:
+        distill_only: bool = False,
+    ) -> Gaussians | Tuple[Gaussians, Dict[str, Tensor]] | Dict[str, Tensor]:
         """context_images: (b, v, h, w, 3) in [-1, 1]; context_intrinsics:
         (b, v, 3, 3); style_image: (b, hs, ws, 3) in [-1, 1].
         transpose_maps: portrait mode; the dense maps are transposed back
         (h/w swap) before the adapter. generator: the dropout masks' source
-        in training mode. Returns Gaussians with g = v*h*w."""
+        in training mode. Returns Gaussians with g = v*h*w.
+
+        distill_only (stage-0 distillation): stop after the point maps and
+        return {"pts3d", "depths"}. The JAX step runs the whole encoder and
+        XLA drops the stylizer and the gs heads, which its loss does not
+        read; here they are not run."""
         b, v, h, w, _ = context_images.shape
 
         with compute_in(self.backbone_dtype, self.backbone.dtype, context_images.device.type):
             enc_feat, enc_pos, dec_feat = self.backbone(context_images, context_intrinsics)
-            sty_feat = self.token_stylizer(style_image, enc_feat, enc_pos)
 
         dec0 = [t[:, 0].float() for t in dec_feat]
         decr = [t[:, 1:].reshape(b * (v - 1), *t.shape[2:]).float() for t in dec_feat]
@@ -123,6 +161,12 @@ class Styl3rEncoder(nn.Module):
         pts0 = self.downstream_head1(dec0, (h, w))
         ptsr = self.downstream_head2(decr, (h, w)).reshape(b, v - 1, h, w, 3)
         pts_all = torch.cat([pts0[:, None], ptsr], dim=1)  # (b, v, h, w, 3)
+        if distill_only:
+            pts = pts_all.transpose(2, 3) if transpose_maps else pts_all
+            return {"pts3d": pts, "depths": pts[..., 2]}
+
+        with compute_in(self.backbone_dtype, self.backbone.dtype, context_images.device.type):
+            sty_feat = self.token_stylizer(style_image, enc_feat, enc_pos)
 
         imgs = context_images.float()
         gs0 = self.gaussian_param_head(dec0, imgs[:, 0], (h, w), generator)
@@ -138,19 +182,163 @@ class Styl3rEncoder(nn.Module):
         if transpose_maps:
             pts_all = pts_all.transpose(2, 3)
             raw = raw.transpose(2, 3)
-            h, w = w, h
-        densities = torch.sigmoid(raw[..., 0])
-        opacities = map_pdf_to_opacity(
-            densities, global_step, self.opacity_initial, self.opacity_final,
-            self.opacity_warm_up,
+        return _adapt(raw, pts_all, self, global_step, return_aux)
+
+
+class Styl3rTokenStyleEncoder2View(nn.Module):
+    """The 2-view `noposplat_token_style` encoder: the encoder-only
+    `croco_enc` backbone -> StructureBuilder (self-attention over both
+    views' tokens) for structure, TokenStylizer for appearance; ONE pts3d
+    head and ONE dpt_gs_sh structure head shared by both views, a dpt_gs_sh
+    appearance head on the stylized tokens.
+
+    The reference's forward calls `self.token_stylizer(style, feat1, pos1,
+    feat2, pos2)`, which TokenStylizer.forward(style, content_feat,
+    content_pos) does not take, so its 2-view style path crashes. As in the
+    JAX encoder, the stylizer gets both views stacked, the evident intent.
+
+    With `distill_only` (stage-0 distillation) the forward stops after the
+    points: {"pts3d", "depths"}, no stylization and no Gaussians."""
+
+    def __init__(
+        self,
+        sh_degree: int = 0,
+        patch_size: int = 16,
+        opacity_initial: float = 0.0,
+        opacity_final: float = 0.0,
+        opacity_warm_up: int = 1,
+        backbone_dtype: torch.dtype = torch.float32,
+        head_trunk_dtype: Optional[torch.dtype] = None,
+        enc_depth: int = 24,
+        dec_depth: int = 12,
+        enc_dim: int = 1024,
+        dec_dim: int = 768,
+        enc_heads: int = 16,
+        dec_heads: int = 12,
+        head_feature_dim: int = 256,
+        head_last_dim: int = 128,
+        head_layer_dims: tuple = (96, 192, 384, 768),
+        pts3d_bound: Optional[float] = None,
+    ):
+        super().__init__()
+        self.sh_degree = sh_degree
+        self.opacity_initial = opacity_initial
+        self.opacity_final = opacity_final
+        self.opacity_warm_up = opacity_warm_up
+        self.backbone_dtype = backbone_dtype
+        self.backbone = CrocoEncBackbone(
+            patch_size=patch_size, enc_depth=enc_depth, enc_dim=enc_dim, enc_heads=enc_heads
         )
-        gaussians = unified_gaussian_adapter(
-            means=pts_all.reshape(b, v * h * w, 3),
-            opacities=opacities.reshape(b, v * h * w),
-            raw=raw[..., 1:].reshape(b, v * h * w, -1),
-            sh_degree=self.sh_degree,
+        self.structure_builder = StructureBuilder(
+            enc_dim=enc_dim, dec_dim=dec_dim, dec_depth=dec_depth, dec_heads=dec_heads
         )
-        if return_aux:
-            aux = {"pts3d": pts_all, "depths": pts_all[..., 2], "densities": densities}
-            return gaussians, aux
-        return gaussians
+        self.token_stylizer = TokenStylizer(
+            patch_size=patch_size, enc_depth=enc_depth, dec_depth=dec_depth, enc_dim=enc_dim,
+            dec_dim=dec_dim, enc_heads=enc_heads, dec_heads=dec_heads,
+        )
+        head_dims = _head_dims(
+            enc_dim, dec_dim, dec_depth, head_feature_dim, head_layer_dims, patch_size, head_trunk_dtype
+        )
+        self.downstream_head1 = DPTPts3dHead(last_dim=head_last_dim, pts3d_bound=pts3d_bound, **head_dims)
+        structure_channels = 1 + raw_gaussian_channels(sh_degree) - 3 * d_sh(sh_degree)
+        self.gaussian_structure_head = DPTGSSHHead(out_channels=structure_channels, **head_dims)
+        self.gaussian_appearance_head = DPTGSSHHead(out_channels=3 * d_sh(sh_degree), **head_dims)
+
+    def forward(
+        self,
+        context_images: Tensor,  # (b, 2, h, w, 3) in [-1, 1]
+        context_intrinsics: Tensor,  # (b, 2, 3, 3)
+        style_image: Tensor,  # (b, hs, ws, 3) in [-1, 1]
+        global_step: int = 0,
+        return_aux: bool = False,
+        distill_only: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ):
+        b, v, h, w, _ = context_images.shape
+        if v != 2:
+            raise ValueError("the token_style encoder is strictly 2-view")
+        device = context_images.device.type
+        with compute_in(self.backbone_dtype, self.backbone.dtype, device):
+            feats, pos = self.backbone(context_images, context_intrinsics)
+            structure = self.structure_builder(feats, pos)
+        struct_flat = [t.reshape(b * v, *t.shape[2:]).float() for t in structure]
+        pts = self.downstream_head1(struct_flat, (h, w)).reshape(b, v, h, w, 3)
+        if distill_only:
+            return {"pts3d": pts, "depths": pts[..., 2]}
+
+        with compute_in(self.backbone_dtype, self.token_stylizer.dtype, device):
+            sty = self.token_stylizer(style_image, feats, pos)
+        sty_flat = [t.reshape(b * v, *t.shape[2:]).float() for t in sty]
+        gs_struct = self.gaussian_structure_head(struct_flat, (h, w), generator).reshape(b, v, h, w, -1)
+        gs_appear = self.gaussian_appearance_head(sty_flat, (h, w), generator).reshape(b, v, h, w, -1)
+        return _adapt(torch.cat([gs_struct, gs_appear], dim=-1), pts, self, global_step, return_aux)
+
+
+class NoPoSplatMultiEncoder(nn.Module):
+    """The style-free NoPoSplat N-view encoder: the multiview CroCo backbone
+    -> per-view pts3d heads and dpt_gs heads that emit all the raw Gaussian
+    channels (opacity, scale/rotation and 3*d_sh SH); no stylizer. The
+    style image is accepted and ignored."""
+
+    def __init__(
+        self,
+        sh_degree: int = 0,
+        patch_size: int = 16,
+        opacity_initial: float = 0.0,
+        opacity_final: float = 0.0,
+        opacity_warm_up: int = 1,
+        backbone_dtype: torch.dtype = torch.float32,
+        head_trunk_dtype: Optional[torch.dtype] = None,
+        enc_depth: int = 24,
+        dec_depth: int = 12,
+        enc_dim: int = 1024,
+        dec_dim: int = 768,
+        enc_heads: int = 16,
+        dec_heads: int = 12,
+        head_feature_dim: int = 256,
+        head_last_dim: int = 128,
+        head_layer_dims: tuple = (96, 192, 384, 768),
+        pts3d_bound: Optional[float] = None,
+    ):
+        super().__init__()
+        self.sh_degree = sh_degree
+        self.opacity_initial = opacity_initial
+        self.opacity_final = opacity_final
+        self.opacity_warm_up = opacity_warm_up
+        self.backbone_dtype = backbone_dtype
+        self.backbone = MultiViewCrocoBackbone(
+            patch_size=patch_size, enc_depth=enc_depth, dec_depth=dec_depth, enc_dim=enc_dim,
+            dec_dim=dec_dim, enc_heads=enc_heads, dec_heads=dec_heads,
+        )
+        head_dims = _head_dims(
+            enc_dim, dec_dim, dec_depth, head_feature_dim, head_layer_dims, patch_size, head_trunk_dtype
+        )
+        self.downstream_head1 = DPTPts3dHead(last_dim=head_last_dim, pts3d_bound=pts3d_bound, **head_dims)
+        self.downstream_head2 = DPTPts3dHead(last_dim=head_last_dim, pts3d_bound=pts3d_bound, **head_dims)
+        full_channels = 1 + raw_gaussian_channels(sh_degree)
+        self.gaussian_param_head = DPTGSHead(out_channels=full_channels, **head_dims)
+        self.gaussian_param_head2 = DPTGSHead(out_channels=full_channels, **head_dims)
+
+    def forward(
+        self,
+        context_images: Tensor,
+        context_intrinsics: Tensor,
+        style_image: Optional[Tensor] = None,
+        global_step: int = 0,
+        return_aux: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ):
+        b, v, h, w, _ = context_images.shape
+        with compute_in(self.backbone_dtype, self.backbone.dtype, context_images.device.type):
+            _, _, dec_feat = self.backbone(context_images, context_intrinsics)
+        dec0 = [t[:, 0].float() for t in dec_feat]
+        decr = [t[:, 1:].reshape(b * (v - 1), *t.shape[2:]).float() for t in dec_feat]
+        pts0 = self.downstream_head1(dec0, (h, w))
+        ptsr = self.downstream_head2(decr, (h, w)).reshape(b, v - 1, h, w, 3)
+        pts = torch.cat([pts0[:, None], ptsr], dim=1)
+
+        imgs = context_images.float()
+        gs0 = self.gaussian_param_head(dec0, imgs[:, 0], (h, w), generator)
+        gsr = self.gaussian_param_head2(decr, imgs[:, 1:].reshape(b * (v - 1), h, w, 3), (h, w), generator)
+        raw = torch.cat([gs0[:, None], gsr.reshape(b, v - 1, h, w, -1)], dim=1)
+        return _adapt(raw, pts, self, global_step, return_aux)

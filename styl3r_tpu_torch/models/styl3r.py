@@ -106,11 +106,13 @@ class Styl3rModel(nn.Module):
         return_aux: bool = False,
         portrait: bool = False,
         generator: Optional[torch.Generator] = None,
+        distill_only: bool = False,
     ):
         """With `portrait` (whole-batch portrait scenes, h > w) the encoder
         runs on the transposed inputs with swapped intrinsics and its dense
         maps transpose back before the adapter. `generator` feeds dropout in
-        training mode."""
+        training mode. With `distill_only` the encoder stops at its point
+        maps: {"pts3d", "depths"}."""
         context = normalize_images(batch.context_images)
         style = normalize_images(batch.style_image)
         intrinsics = batch.context_intrinsics
@@ -121,7 +123,7 @@ class Styl3rModel(nn.Module):
         return self.encoder(
             context, intrinsics, style,
             global_step=global_step, return_aux=return_aux, transpose_maps=portrait,
-            generator=generator,
+            generator=generator, distill_only=distill_only,
         )
 
     def forward(

@@ -4,7 +4,9 @@
     python -m styl3r_tpu_torch.train.main --config configs/experiment/re10k_3view_style.yaml \
         [--max-steps N] [--cpu] [key.sub=value ...]
 
-The experiment config selects stage-1 novel-view pretraining or stage-2
+The experiment config selects stage-0 distillation
+(re10k_style_distill.yaml: a frozen MASt3R teacher, `train.distiller=<.pth>`,
+drawn at random without one), stage-1 novel-view pretraining or stage-2
 stylization. Runs on CUDA, or raises without it, unless --cpu is given.
 Weights:
   * model.encoder.pretrained_weights=<.ckpt/.pth>: a Styl3R, NoPoSplat or
@@ -21,9 +23,9 @@ from __future__ import annotations
 import argparse
 
 
-def main(argv=None, model=None):
-    """`model` replaces the full-width model the config would build (the
-    tests pass a tiny one)."""
+def main(argv=None, model=None, teacher=None):
+    """`model` and `teacher` replace the full-width model and distillation
+    teacher the config would build (the tests pass tiny ones)."""
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--config", default="configs/main.yaml")
     parser.add_argument("--max-steps", type=int, default=None)
@@ -44,7 +46,7 @@ def main(argv=None, model=None):
     cfg = load_config(args.config, args.overrides)
     print(f"device: {device}; mode={cfg.mode} datasets={len(cfg.datasets)} batch={cfg.train.batch_size}")
 
-    trainer = Trainer(cfg, model=model, device=device)
+    trainer = Trainer(cfg, model=model, device=device, teacher=teacher)
     try:
         # Warm starts (main_style.py:128-168), loaded over the model's init
         # inside fit.

@@ -183,14 +183,38 @@ def make_stage2_optimizer(
 
 
 class DistillCfg(NamedTuple):
-    """Distillation settings of the JAX package (a frozen DUSt3R/MASt3R
-    teacher's pseudo-GT point maps). Not ported yet: see make_train_step."""
+    """Distillation settings (reference model_wrapper_style.py:95-100): a
+    frozen DUSt3R/MASt3R teacher (models/distiller.py, on the model's
+    device) gives pseudo-GT point maps; Regr3D without normalization on the
+    encoder's per-view pts3d, weighted and gated by `max_steps`, or alone
+    and unweighted with `distill_only` (stage 0: no render)."""
 
     teacher: Any
     weight: float = 0.1
     max_steps: int = 1_000_000
     conf_threshold: float = 3.0
     distill_only: bool = False
+
+
+def distill_loss(distill: DistillCfg, pts3d: Tensor, batch, global_step: int) -> Tensor:
+    """Regr3D of the encoder's (b, v, h, w, 3) points against the teacher's
+    on the first two context views (model_wrapper_style.py:157-171,
+    :234-242). The teacher runs without gradients on its f32 weights."""
+    from ..losses.regr3d import regr3d_loss
+    from ..models.styl3r import normalize_images
+
+    with torch.no_grad():
+        pseudo = distill.teacher(normalize_images(batch.context_images[:, :2]))
+    raw = regr3d_loss(
+        pseudo["pts3d_1"], pseudo["pts3d_2"], pts3d[:, 0], pts3d[:, 1],
+        conf1=pseudo["conf_1"], conf2=pseudo["conf_2"], conf_threshold=distill.conf_threshold,
+        normalize=False,
+    )
+    if distill.distill_only:
+        # Stage 0 adds the term unweighted and ungated.
+        return raw
+    gate = float(global_step <= distill.max_steps)
+    return distill.weight * gate * raw
 
 
 @dataclass
@@ -220,12 +244,12 @@ def make_train_step(
     the same dropout masks. The metrics add the loss, the gradient's global
     norm over the trained parameters (before clipping) and the render's
     live_pairs / pair_slots (the pair_cap truncation was lossless iff
-    live_pairs <= pair_slots)."""
-    if distill is not None:
-        raise NotImplementedError(
-            "distillation (DistillCfg) needs models/distiller.py and losses/regr3d.py, "
-            "which ROADMAP slice 3 ports"
-        )
+    live_pairs <= pair_slots).
+
+    With `distill`, the Regr3D term (distill_loss) is added to the loss and
+    logged as `distill`; with `distill.distill_only` the step runs the
+    encoder alone, renders nothing, and its metrics are {distill, loss,
+    grad_norm}."""
     if loss_fn is None:
 
         def loss_fn(output, batch, gaussians, global_step=0, identity_output=None):
@@ -236,9 +260,19 @@ def make_train_step(
         if not stylized:
             batch = batch._replace(style_image=batch.context_images[:, 0])
         model.train()
+        if distill is not None and distill.distill_only:
+            # The encoder stops at its point maps: the only output the loss
+            # reads (the rest get zero gradients, as in JAX).
+            pts = model.predict_gaussians(
+                batch, state.step, portrait=portrait, generator=generator, distill_only=True
+            )["pts3d"]
+            loss = distill_loss(distill, pts, batch, state.step)
+            return update(state, loss, {"distill": loss})
+
         rng_state = generator.get_state()
         kw = dict(global_step=state.step, portrait=portrait, generator=generator, **render_kwargs)
-        gaussians, output = model(batch, image_shape, **kw)
+        fwd = model(batch, image_shape, return_aux=distill is not None, **kw)
+        gaussians, output = fwd[0], fwd[1]
         identity_output = None
         if identity_branch:
             generator.set_state(rng_state)
@@ -247,13 +281,20 @@ def make_train_step(
         loss, metrics = loss_fn(
             output, batch, gaussians, global_step=state.step, identity_output=identity_output
         )
+        if distill is not None:
+            term = distill_loss(distill, fwd[2]["pts3d"], batch, state.step)
+            loss = loss + term
+            metrics = dict(metrics, distill=term)
+        return dict(
+            update(state, loss, metrics),
+            live_pairs=output.live_pairs.max(), pair_slots=output.pair_slots.min(),
+        )
+
+    def update(state: TrainState, loss: Tensor, metrics: Dict[str, Tensor]) -> Dict[str, Tensor]:
         optimizer.zero_grad()
         loss.backward()
         grad_norm = optimizer.step()
         state.step += 1
-        return dict(
-            {k: v.detach() for k, v in metrics.items()}, loss=loss.detach(), grad_norm=grad_norm,
-            live_pairs=output.live_pairs.max(), pair_slots=output.pair_slots.min(),
-        )
+        return dict({k: v.detach() for k, v in metrics.items()}, loss=loss.detach(), grad_norm=grad_norm)
 
     return train_step

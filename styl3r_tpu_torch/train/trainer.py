@@ -25,6 +25,7 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn as nn
 
 from ..data import DatasetConfig, RE10kStyleDataset, make_view_sampler
 from ..data.dataset import batch_iterator
@@ -41,7 +42,7 @@ from ..utils.checkpoint import (
 from ..utils.config import RootCfg
 from ..utils.convert import init_like_flax_
 from .losses import LossBundle
-from .step import TrainState, make_optimizer, make_stage2_optimizer, make_train_step
+from .step import DistillCfg, TrainState, make_optimizer, make_stage2_optimizer, make_train_step
 
 
 class LocalLogger:
@@ -280,11 +281,15 @@ def _first(gaussians):
 
 class Trainer:
     """`model` replaces the full-width model the config would build (the
-    tests pass a tiny one); `device` places the one it builds."""
+    tests pass a tiny one); `device` places the one it builds. `teacher`
+    replaces the full-width distillation teacher's architecture (a
+    Dust3RTeacher): its weights are loaded or drawn as the full-width one's
+    would be."""
 
-    def __init__(self, cfg: RootCfg, model: Optional[Styl3rModel] = None, device=None):
+    def __init__(
+        self, cfg: RootCfg, model: Optional[Styl3rModel] = None, device=None, teacher: Optional[nn.Module] = None
+    ):
         self.cfg = cfg
-        self._check_distiller(cfg)
         self.model = model or Styl3rModel(
             sh_degree=cfg.model.encoder.sh_degree,
             backbone_dtype=torch.bfloat16 if cfg.model.encoder.backbone_dtype == "bfloat16" else torch.float32,
@@ -293,6 +298,9 @@ class Trainer:
         )
         self.device = self.model.device
         self.loss_bundle = self._build_loss_bundle(cfg)
+        # The frozen teacher lives here, not in the model: it stays out of
+        # the optimizer and the checkpoints.
+        self.distill = self._build_distiller(cfg, teacher)
         self.output_dir = Path(cfg.checkpointing.output_dir)
         wandb_cfg = cfg.wandb
         use_wandb = wandb_cfg.mode != "disabled"
@@ -357,14 +365,36 @@ class Trainer:
             lpips=lpips,
         )
 
-    def _check_distiller(self, cfg: RootCfg) -> None:
-        """Distillation from a frozen DUSt3R/MASt3R teacher
-        (main_style.py:122-125) is not ported: configuring it raises."""
-        if bool(cfg.train.distiller) or bool(cfg.losses.distill):
-            raise NotImplementedError(
-                "distillation (train.distiller / losses.distill) needs models/distiller.py and "
-                "losses/regr3d.py, which ROADMAP queue 1, item 6 ports"
+    def _build_distiller(self, cfg: RootCfg, teacher: Optional[nn.Module]) -> Optional[DistillCfg]:
+        """The frozen DUSt3R/MASt3R teacher and its DistillCfg, when
+        `train.distiller` or `losses.distill` asks for distillation
+        (main_style.py:122-125, model_wrapper_style.py:95-100). Its weights
+        come from `train.distiller` (a MASt3R/DUSt3R .pth); without one it is
+        drawn at random, with a loud warning, on the CPU from a fixed seed as
+        the perceptual nets are. It is kept in f32, in eval mode and without
+        gradients."""
+        from ..models.distiller import Dust3RTeacher, convert_dust3r_checkpoint
+
+        if not (cfg.train.distiller or cfg.losses.distill or teacher is not None):
+            return None
+        if teacher is None:
+            # Built without torch's own init, which the weights below replace.
+            with torch.device("meta"):
+                teacher = Dust3RTeacher()
+            teacher = teacher.to_empty(device="cpu")
+        if cfg.train.distiller:
+            teacher.load_state_dict(convert_dust3r_checkpoint(load_torch_state_dict(cfg.train.distiller)))
+        else:
+            print(
+                "WARNING: distillation enabled without train.distiller weights — teacher will be RANDOMLY "
+                "INITIALIZED (pseudo-GT is noise)."
             )
+            init_like_flax_(teacher, torch.Generator().manual_seed(2))
+        teacher = teacher.float().to(self.device).freeze()
+        return DistillCfg(
+            teacher=teacher, weight=cfg.losses.distill or 0.1, max_steps=cfg.train.distill_max_steps,
+            distill_only=cfg.train.distill_only,
+        )
 
     # -- checkpointing ----------------------------------------------------
 
@@ -504,7 +534,8 @@ class Trainer:
             if (hh, ww) not in step_cache:
                 step_cache[(hh, ww)] = make_train_step(
                     self.model, self.optimizer, (hh, ww), loss_fn=self.loss_bundle, stylized=stylized,
-                    identity_branch=self.loss_bundle.identity, portrait=hh > ww, **self._render_kwargs,
+                    identity_branch=self.loss_bundle.identity, distill=self.distill, portrait=hh > ww,
+                    **self._render_kwargs,
                 )
             return step_cache[(hh, ww)]
 
@@ -533,7 +564,9 @@ class Trainer:
                     ))
                     print(f"step {i + 1}: loss={metrics['loss']:.4f} ({dt:.2f}s/step)", flush=True)
 
-                if (i + 1) % cfg.train.val_every_n_steps == 0:
+                # Stage 0 renders nothing, so it is not validated.
+                stage0 = self.distill is not None and self.distill.distill_only
+                if (i + 1) % cfg.train.val_every_n_steps == 0 and not stage0:
                     t0 = time.perf_counter()
                     self.validate(state, batch, stylized=stylized)
                     self.logger.log_scalars(i + 1, {"validate_seconds": time.perf_counter() - t0})

@@ -115,6 +115,55 @@ def convert_noposplat_encoder(sd: Mapping[str, Tensor], sh_degree: int = 0) -> D
     return out
 
 
+_STYLIZER_ENCODER_KEYS = ("patch_embed.", "enc_blocks.", "enc_norm.")
+_DECODER_KEYS = ("decoder_embed.", "dec_blocks.", "dec_norm.")
+
+
+def _under(sd: Mapping[str, Tensor], prefix: str, keep: Tuple[str, ...]) -> Dict[str, Tensor]:
+    """The entries under `prefix` whose name below it starts with one of
+    `keep`, without the prefix."""
+    return {k: v for k, v in _with_prefix(sd, prefix, "").items() if k.startswith(keep)}
+
+
+def convert_structure_builder(sd: Mapping[str, Tensor], prefix: str = "structure_builder") -> Dict[str, Tensor]:
+    """The 2-view encoder's structure builder -> a bare StructureBuilder's
+    keys (its decoder embedding, blocks and norm)."""
+    return _under(sd, prefix + ".", _DECODER_KEYS)
+
+
+def convert_croco_enc_backbone(sd: Mapping[str, Tensor], prefix: str = "backbone") -> Dict[str, Tensor]:
+    """An encoder-only CroCo (AsymmetricCroCoEnc) -> a bare CrocoEncBackbone's
+    keys (its encoder and, where there is one, the intrinsics token)."""
+    return _under(sd, prefix + ".", _STYLIZER_ENCODER_KEYS + ("intrinsic_encoder.",))
+
+
+def convert_token_style_encoder(state_dict: Mapping[str, Tensor], prefix: str = "encoder.") -> Dict[str, Tensor]:
+    """A 2-view EncoderNoPoSplatTokenStyle checkpoint
+    (encoder_noposplat_token_style.py:150-283) -> Styl3rTokenStyleEncoder2View's
+    keys."""
+    sd = _with_prefix(state_dict, prefix, "")
+    out = {f"backbone.{k}": v for k, v in convert_croco_enc_backbone(sd).items()}
+    out.update({f"structure_builder.{k}": v for k, v in convert_structure_builder(sd).items()})
+    out.update({
+        f"token_stylizer.{k}": v
+        for k, v in _under(sd, "token_stylizer.", _STYLIZER_ENCODER_KEYS + _DECODER_KEYS).items()
+    })
+    for name in ("downstream_head1", "gaussian_structure_head", "gaussian_appearance_head"):
+        out.update(_with_prefix(sd, f"{name}.", f"{name}."))
+    return out
+
+
+def convert_noposplat_multi_encoder(state_dict: Mapping[str, Tensor], prefix: str = "encoder.") -> Dict[str, Tensor]:
+    """A NoPoSplat checkpoint -> NoPoSplatMultiEncoder's keys: the style-free
+    architecture itself, its full-width gs heads as they are (no row split),
+    dec_blocks2 seeded from dec_blocks where the checkpoint has none."""
+    sd = _with_prefix(state_dict, prefix, "")
+    out = _duplicate_dec_blocks(_with_prefix(sd, "backbone.", "backbone."), backbone="backbone.")
+    for name in ("downstream_head1", "downstream_head2", "gaussian_param_head", "gaussian_param_head2"):
+        out.update(_with_prefix(sd, f"{name}.", f"{name}."))
+    return out
+
+
 def convert_mast3r_backbone(sd: Mapping[str, Tensor], patch_size: Optional[int] = None) -> Dict[str, Tensor]:
     """A raw MASt3R/DUSt3R `model` dict -> the backbone's keys only (the
     reference's checkpoint_filter_fn + strict=False load, main_style.py:130-135);
@@ -127,8 +176,7 @@ def convert_mast3r_backbone(sd: Mapping[str, Tensor], patch_size: Optional[int] 
     return out
 
 
-_STYLIZER_ENCODER_KEYS = ("patch_embed.", "enc_blocks.", "enc_norm.")
-_STYLIZER_KEYS = _STYLIZER_ENCODER_KEYS + ("decoder_embed.", "dec_norm.", "dec_blocks.")
+_STYLIZER_KEYS = _STYLIZER_ENCODER_KEYS + _DECODER_KEYS
 
 
 def convert_stylizer_weights(sd: Mapping[str, Tensor]) -> Dict[str, Tensor]:

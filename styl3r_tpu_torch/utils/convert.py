@@ -70,18 +70,24 @@ def _numbered(p: Mapping, prefix: str):
 
 
 def _croco(p: Mapping, out: Dict, name: str) -> None:
-    enc = p["encoder"]
-    _conv(enc["patch_embed"]["proj"], out, f"{name}.patch_embed.proj")
-    for i, blk in _numbered(enc, "enc_blocks"):
-        _block(blk, out, f"{name}.enc_blocks.{i}")
-    _layernorm(enc["enc_norm"], out, f"{name}.enc_norm")
+    """A CroCo stack: its encoder, intrinsics token and decoder(s), each
+    where the stack has one (CrocoEncBackbone has no decoder,
+    StructureBuilder no encoder)."""
+    if "encoder" in p:
+        enc = p["encoder"]
+        _conv(enc["patch_embed"]["proj"], out, f"{name}.patch_embed.proj")
+        for i, blk in _numbered(enc, "enc_blocks"):
+            _block(blk, out, f"{name}.enc_blocks.{i}")
+        _layernorm(enc["enc_norm"], out, f"{name}.enc_norm")
     if "intrinsic_encoder" in p:
         _linear(p["intrinsic_encoder"], out, f"{name}.intrinsic_encoder")
-    _linear(p["decoder_embed"], out, f"{name}.decoder_embed")
+    if "decoder_embed" in p:
+        _linear(p["decoder_embed"], out, f"{name}.decoder_embed")
     for stack in ("dec_blocks", "dec_blocks2"):
         for i, blk in _numbered(p, stack):
             _block(blk, out, f"{name}.{stack}.{i}")
-    _layernorm(p["dec_norm"], out, f"{name}.dec_norm")
+    if "dec_norm" in p:
+        _layernorm(p["dec_norm"], out, f"{name}.dec_norm")
 
 
 def _trunk(p: Mapping, out: Dict, name: str) -> None:
@@ -117,6 +123,40 @@ def _gs_head(p: Mapping, out: Dict, name: str) -> None:
         _conv(p["input_merger"], out, f"{name}.dpt.input_merger.0")
 
 
+# Each model's flax subtrees: (converter, the port's module name).
+_LAYOUTS = {
+    "styl3r": {
+        "backbone": (_croco, "backbone"),
+        "token_stylizer": (_croco, "token_stylizer"),
+        "head1": (_pts3d_head, "downstream_head1"),
+        "head2": (_pts3d_head, "downstream_head2"),
+        "gaussian_param_head": (_gs_head, "gaussian_param_head"),
+        "gaussian_param_head2": (_gs_head, "gaussian_param_head2"),
+        "gaussian_appearance_head": (_gs_head, "gaussian_appearance_head"),
+    },
+    "token_style_2view": {
+        "backbone": (_croco, "backbone"),
+        "structure_builder": (_croco, "structure_builder"),
+        "token_stylizer": (_croco, "token_stylizer"),
+        "head1": (_pts3d_head, "downstream_head1"),
+        "gaussian_structure_head": (_gs_head, "gaussian_structure_head"),
+        "gaussian_appearance_head": (_gs_head, "gaussian_appearance_head"),
+    },
+    "noposplat_multi": {
+        "backbone": (_croco, "backbone"),
+        "head1": (_pts3d_head, "downstream_head1"),
+        "head2": (_pts3d_head, "downstream_head2"),
+        "gaussian_param_head": (_gs_head, "gaussian_param_head"),
+        "gaussian_param_head2": (_gs_head, "gaussian_param_head2"),
+    },
+    "teacher": {
+        "backbone": (_croco, "backbone"),
+        "downstream_head1": (_pts3d_head, "downstream_head1"),
+        "downstream_head2": (_pts3d_head, "downstream_head2"),
+    },
+}
+
+
 def _perceptual(p: Mapping, out: Dict) -> None:
     """VGG19Features / LPIPSVgg16: `convN` -> `features.N`, `linI` as is."""
     for name, leaf in p.items():
@@ -132,21 +172,21 @@ def from_jax_params(
     """Flax params ({'params': ...}, arrays) -> a state dict, as CPU tensors.
 
     model "styl3r": Styl3rEncoder params -> Styl3rModel, keys under `prefix`
-    (default "encoder."); "vgg19" / "lpips": VGG19Features / LPIPSVgg16
-    params -> the port's modules of the same names (losses/)."""
+    (default "encoder."); "token_style_2view" / "noposplat_multi":
+    Styl3rTokenStyleEncoder2View / NoPoSplatMultiEncoder params -> the
+    port's encoders of the same names; "teacher": Dust3RTeacher params ->
+    models/distiller.py's; "vgg19" / "lpips": VGG19Features / LPIPSVgg16
+    params -> the port's modules of the same names (losses/). Only
+    "styl3r" has a default prefix."""
     p = params["params"] if "params" in params else params
     out: Dict[str, np.ndarray] = {}
     if model in ("vgg19", "lpips"):
         _perceptual(p, out)
-    elif model == "styl3r":
-        prefix = "encoder." if prefix is None else prefix
-        _croco(p["backbone"], out, "backbone")
-        _croco(p["token_stylizer"], out, "token_stylizer")
-        _pts3d_head(p["head1"], out, "downstream_head1")
-        _pts3d_head(p["head2"], out, "downstream_head2")
-        _gs_head(p["gaussian_param_head"], out, "gaussian_param_head")
-        _gs_head(p["gaussian_param_head2"], out, "gaussian_param_head2")
-        _gs_head(p["gaussian_appearance_head"], out, "gaussian_appearance_head")
+    elif model in _LAYOUTS:
+        if model == "styl3r" and prefix is None:
+            prefix = "encoder."
+        for flax_name, (kind, name) in _LAYOUTS[model].items():
+            kind(p[flax_name], out, name)
     else:
         raise ValueError(f"unknown model {model!r}")
     prefix = prefix or ""

@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain versions, on the card, on
 synthetic inputs and on each route's own (alignment, pose refinement, the
-fit, orthographic projections).
+fit, orthographic projections), and the distillation stage's steps on the
+card against the CPU.
 
 These tests need an NVIDIA GPU and nvcc, and skip on a host without them.
 On a machine with a card (no JAX needed):
@@ -572,12 +573,16 @@ def test_forward_kernel_matches_plain_on_orthographic_inputs(cuda):
     assert depth_scale > 100 and float((kern.depth - plain.depth).abs().max()) <= 1e-5 * depth_scale
 
 
-def _fit_first_loss(device, tmp_path, monkeypatch):
-    """One stage-2 step (re10k_3view_style.yaml: style 10 + identity) of a
-    tiny model from fixed weights on `device`, its dropout masks drawn on
-    the CPU so that both devices draw the same: (first loss, compositor
-    launches during the fit)."""
+def _fit_first_loss(device, tmp_path, monkeypatch, config="configs/experiment/re10k_3view_style.yaml",
+                    overrides=(), teacher=False):
+    """One step of `config` (by default stage 2, re10k_3view_style.yaml:
+    style 10 + identity) of a tiny model from fixed weights on `device`, its
+    dropout masks drawn on the CPU so that both devices draw the same; with
+    `teacher`, a tiny distillation teacher, which the trainer draws on the
+    CPU. Returns (the first step's logged metrics, compositor launches
+    during the fit)."""
     from styl3r_tpu_torch.models import dpt
+    from styl3r_tpu_torch.models.distiller import Dust3RTeacher
     from styl3r_tpu_torch.models.styl3r import Batch, Styl3rModel
     from styl3r_tpu_torch.train import trainer as trainer_mod
     from styl3r_tpu_torch.utils.config import load_config
@@ -604,18 +609,19 @@ def _fit_first_loss(device, tmp_path, monkeypatch):
                   np.broadcast_to(k, (2, 2, 3, 3)), np.full((2, 2), 0.5), np.full((2, 2), 100.0),
                   rng.uniform(0, 1, (2, 32, 32, 3)), rng.uniform(0.4, 0.6, (2, 2, 32, 32, 3)))
     out = tmp_path / device
-    cfg = load_config("configs/experiment/re10k_3view_style.yaml", [
+    cfg = load_config(config, [
         f"checkpointing.output_dir={out}", "train.log_every_n_steps=1", "train.val_every_n_steps=100",
         "checkpointing.every_n_train_steps=100", "model.decoder.max_per_tile=512",
-        "model.decoder.max_tiles_per_gaussian=8",
+        "model.decoder.max_tiles_per_gaussian=8", *overrides,
     ])
-    trainer = trainer_mod.Trainer(cfg, model=model)
+    trainer = trainer_mod.Trainer(cfg, model=model, teacher=Dust3RTeacher(**dict(tiny, head_last_dim=8)) if teacher
+                                  else None)
     before = (composite.launches, composite.backward_launches)
     trainer.fit(max_steps=1, batches=iter([batch]))
     trainer.close()
     launched = (composite.launches - before[0], composite.backward_launches - before[1])
     first = json.loads((out / "metrics.jsonl").read_text().splitlines()[0])
-    return first["loss"], launched
+    return first, launched
 
 
 def test_tiny_fit_on_the_card_launches_both_kernels_and_matches_the_cpu(cuda, tmp_path, monkeypatch):
@@ -625,7 +631,29 @@ def test_tiny_fit_on_the_card_launches_both_kernels_and_matches_the_cpu(cuda, tm
     card's convolutions and matmuls sum in other orders)."""
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
-    cpu_loss, cpu_launched = _fit_first_loss("cpu", tmp_path, monkeypatch)
-    gpu_loss, gpu_launched = _fit_first_loss("cuda", tmp_path, monkeypatch)
+    cpu_first, cpu_launched = _fit_first_loss("cpu", tmp_path, monkeypatch)
+    gpu_first, gpu_launched = _fit_first_loss("cuda", tmp_path, monkeypatch)
     assert cpu_launched == (0, 0) and gpu_launched == (2, 2)
+    cpu_loss, gpu_loss = cpu_first["loss"], gpu_first["loss"]
     assert np.isfinite(gpu_loss) and abs(gpu_loss - cpu_loss) <= 1e-4 * abs(cpu_loss)
+
+
+@pytest.mark.parametrize("stage", ["stage0", "stage1"])
+def test_tiny_distillation_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypatch, stage):
+    """The first step of stage 0 (re10k_style_distill.yaml: the teacher and
+    Regr3D, no render) and of stage 1 with losses.distill=0.1, tiny model
+    and teacher: stage 0 launches no kernel, stage 1 each kernel once; the
+    loss and the distillation term agree with the CPU's within 1e-4
+    relative (f32, TF32 off; the teacher's points agree to rounding, which
+    moves no point across its quantile or confidence threshold here)."""
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    if stage == "stage0":
+        kw = dict(config="configs/experiment/re10k_style_distill.yaml", teacher=True)
+    else:
+        kw = dict(config="configs/experiment/re10k_2view_nvs.yaml", overrides=["losses.distill=0.1"], teacher=True)
+    cpu_first, cpu_launched = _fit_first_loss("cpu", tmp_path, monkeypatch, **kw)
+    gpu_first, gpu_launched = _fit_first_loss("cuda", tmp_path, monkeypatch, **kw)
+    assert cpu_launched == (0, 0) and gpu_launched == ((0, 0) if stage == "stage0" else (1, 1))
+    for key in ("loss", "distill"):
+        assert gpu_first[key] > 0 and abs(gpu_first[key] - cpu_first[key]) <= 1e-4 * abs(cpu_first[key]), key

@@ -188,9 +188,31 @@ def test_scratch_init_heads_matches_jax(flax_params):
 
 
 def test_distillation_is_not_ported_yet(flax_params):
+    """Distillation is ported now (tests/test_torch_distill.py holds it
+    against JAX): make_train_step takes a DistillCfg. Its distill-only step
+    reaches neither the stylizer nor the gs heads, whose weights then move
+    by decoupled weight decay alone, p * (1 - lr * 0.05), as optax's zero
+    gradients move them; the point-map path moves by more."""
+    from styl3r_tpu_torch.models.distiller import Dust3RTeacher
+    from styl3r_tpu_torch.utils.convert import init_like_flax_
+
     tm = _port_model(flax_params)
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        tstep.make_train_step(tm, tstep.make_optimizer(tm), HW, distill=tstep.DistillCfg(teacher=None))
+    teacher = init_like_flax_(Dust3RTeacher(**TINY), torch.Generator().manual_seed(2)).freeze()
+    opt = tstep.make_optimizer(tm, lr=1e-3, warmup_steps=0, total_steps=5)
+    step = tstep.make_train_step(tm, opt, HW, stylized=False,
+                                 distill=tstep.DistillCfg(teacher=teacher, distill_only=True))
+    before = {n: p.detach().clone() for n, p in tm.named_parameters()}
+    metrics = step(tstep.TrainState(), batch_to(_train_batch(7), "cpu"), torch.Generator().manual_seed(0))
+    assert set(metrics) == {"distill", "loss", "grad_norm"} and float(metrics["distill"]) > 0
+    decayed = moved = 0
+    for name, p in tm.named_parameters():
+        only_decay = torch.equal(p.detach(), before[name] * (1 - 1e-3 * 0.05))
+        if name.startswith(("encoder.token_stylizer.", "encoder.gaussian_")):
+            assert only_decay, name
+            decayed += 1
+        elif name.startswith(("encoder.backbone.", "encoder.downstream_head")):
+            moved += not only_decay
+    assert decayed > 100 and moved > 100
 
 
 # --- the two repairs ---------------------------------------------------------

@@ -19,6 +19,7 @@ from PIL import Image
 
 from styl3r_tpu_torch.data import DatasetConfig, RE10kStyleDataset
 from styl3r_tpu_torch.data.view_samplers import ViewSamplerBounded
+from styl3r_tpu_torch.models.distiller import Dust3RTeacher
 from styl3r_tpu_torch.models.styl3r import Batch, Styl3rModel
 from styl3r_tpu_torch.train import main as train_main
 from styl3r_tpu_torch.train.trainer import Trainer, endless_batches
@@ -136,11 +137,37 @@ def test_mixed_aspect_stream_trains_through_two_step_functions(tmp_path):
     assert all(np.isfinite(r["loss"]) for r in _records(tmp_path) if "loss" in r)
 
 
-def test_distillation_and_the_adain_baseline_raise(tmp_path):
-    for override in ("losses.distill=0.1", "train.distiller=/weights/mast3r.pth"):
-        cfg = load_config(None, [f"checkpointing.output_dir={tmp_path}", override])
-        with pytest.raises(NotImplementedError, match="item 6"):
-            Trainer(cfg, model=_tiny())
+def test_distillation_builds_a_frozen_teacher_and_the_adain_baseline_raises(tmp_path, capsys):
+    """losses.distill builds the teacher at random, with a warning, drawn on
+    the CPU from a fixed seed; train.distiller loads a MASt3R `model` dict
+    into it instead. Either way it is frozen, f32, and no part of the model,
+    so it stays out of the optimizer and the checkpoints."""
+    teacher_dims = dict(TINY, head_last_dim=8)
+    cfg = load_config(None, [f"checkpointing.output_dir={tmp_path}", "losses.distill=0.1"])
+    drawn = [Trainer(cfg, model=_tiny(), teacher=Dust3RTeacher(**teacher_dims)) for _ in range(2)]
+    assert capsys.readouterr().out.count("teacher will be RANDOMLY INITIALIZED") == 2
+    for trainer in drawn:
+        distill = trainer.distill
+        assert distill.weight == 0.1 and not distill.distill_only and distill.max_steps == 1_000_000
+        assert not distill.teacher.training
+        assert all(not p.requires_grad and p.dtype == torch.float32 for p in distill.teacher.parameters())
+        assert not any(k.startswith(("teacher", "backbone.", "downstream")) for k in trainer.model.state_dict())
+        trainer.close()
+    for a, b in zip(drawn[0].distill.teacher.parameters(), drawn[1].distill.teacher.parameters()):
+        assert torch.equal(a, b)
+
+    weights = {k: torch.full_like(v, 0.5) for k, v in drawn[0].distill.teacher.state_dict().items()}
+    torch.save({"model": weights}, tmp_path / "mast3r.pth")
+    cfg = load_config(None, [f"checkpointing.output_dir={tmp_path}", f"train.distiller={tmp_path / 'mast3r.pth'}"])
+    trainer = Trainer(cfg, model=_tiny(), teacher=Dust3RTeacher(**teacher_dims))
+    assert "RANDOMLY" not in capsys.readouterr().out
+    for k, v in trainer.distill.teacher.state_dict().items():
+        assert torch.equal(v, weights[k]), k
+    trainer.close()
+    plain = Trainer(load_config(None, [f"checkpointing.output_dir={tmp_path}"]), model=_tiny())
+    assert plain.distill is None
+    plain.close()
+
     cfg = load_config("configs/experiment/re10k_3view_style.yaml", [
         f"checkpointing.output_dir={tmp_path}", "train.adain_baseline_weights=/weights/adain.pth",
         "train.val_every_n_steps=1", *SMALL_RENDER])
