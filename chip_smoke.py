@@ -83,11 +83,27 @@ fails:
      key). Step and teacher times (CUDA events), peak memory and checkpoint
      bytes are printed, and both kernels are held against their plain
      versions on stage 1's first step's own inputs and cotangents;
- 11. kernel times: each kernel's device time (torch.profiler, summed over
+ 11. secondary modules, at full width with random weights from fixed seeds,
+     each held against the same module and weights on the CPU:
+     get_backbone("resnet", model="resnet50") and get_backbone("dino",
+     model="dino_vitb8") on 2 views at 256^2 (forward ms, median of 10,
+     CUDA events; peak memory); NormalizedVGG (all five slices) on a 256^2
+     style image and the Linear3D, AdaIN3D and AdaAttN3D stylizers at
+     vgg_layer 3 on 131,072 points (held on 8,192 of them, timed on all);
+     get_intrinsic_embedding at degree 4, project_rays of view 0's 65,536
+     rays into view 1 (overlaps_image equal on every ray), lift_to_3d and
+     get_depth; then a render route for both kernels: the pose-recovery
+     cloud (131,072 Gaussians) on 2 views at 256^2, the AdaAttN loss
+     (norm="adaattn", random VGG19) plus the depth-smoothness loss of the
+     rendered depth weighted by the rendered image, backpropagated to the
+     Gaussians (each step launches each kernel once); both kernels held
+     against their plain versions on its inputs and cotangents, whose depth
+     part, and the backward's depth column, must not be zero;
+ 12. kernel times: each kernel's device time (torch.profiler, summed over
      the backward's two launches a call) and launch shape (grid, block and
      registers a thread, from the profiler's trace of the same calls), call
      time and plain version's time (CUDA events), beside its bound;
- 12. reference: a tiny-width model's Gaussians on the card agree with the
+ 13. reference: a tiny-width model's Gaussians on the card agree with the
      same model's on the CPU (whose agreement with the JAX package the CPU
      tests show).
 The line before the last is a JSON object with every kernel's numbers; the
@@ -480,6 +496,7 @@ def check_composite_bwd(inputs, max_per_tile, dcolor, ddepth, dalpha, reps=20):
         # Each phase has a block for every (tile, window) it launches; those
         # of windows a tile walked do the work, the others exit at once.
         walked_blocks=2 * int(n_done.sum()),
+        nonzero_by_column=[int((kern[:, c] != 0).sum()) for c in range(composite.N_GRAD)],
     )
 
 
@@ -500,10 +517,12 @@ def composite_bwd_device_ms(res, reps=20):
     return res
 
 
-def image_cotangents(inputs, max_per_tile, loss_of_images):
-    """A loss's cotangents at the compositor's outputs: dL/dcolor in the
-    tile layout of loss_of_images((n_views, h, w, 3) rendered colors); depth
-    and alpha get none, and with a black background the folded dalpha is 0."""
+def render_cotangents(inputs, max_per_tile, loss_of_render):
+    """A loss's cotangents at the compositor's outputs: dL/dcolor and
+    dL/ddepth in the tile layout of loss_of_render((n_views, h, w, 3)
+    rendered colors, (n_views, h, w) rendered depths), zeros where the loss
+    does not read depth; alpha gets none, and with a black background the
+    folded dalpha is 0."""
     import torch
 
     from styl3r_tpu_torch.ops.rasterizer import composite
@@ -514,9 +533,16 @@ def image_cotangents(inputs, max_per_tile, loss_of_images):
     )
     with torch.enable_grad():
         color = out.color.detach().requires_grad_()
-        loss = loss_of_images(_tiles_to_image(color, inputs.n_views, *inputs.grid))
-        (dcolor,) = torch.autograd.grad(loss, color)
-    return dcolor, torch.zeros_like(out.depth), torch.zeros_like(out.alpha)
+        depth = out.depth.detach().requires_grad_()
+        loss = loss_of_render(*(_tiles_to_image(x, inputs.n_views, *inputs.grid) for x in (color, depth)))
+        dcolor, ddepth = torch.autograd.grad(loss, (color, depth), allow_unused=True)
+    return dcolor, torch.zeros_like(depth) if ddepth is None else ddepth, torch.zeros_like(out.alpha)
+
+
+def image_cotangents(inputs, max_per_tile, loss_of_images):
+    """render_cotangents of a loss of the rendered colors alone: the depth's
+    cotangent is 0."""
+    return render_cotangents(inputs, max_per_tile, lambda color, depth: loss_of_images(color))
 
 
 def mse_cotangents(inputs, max_per_tile, target_images):
@@ -1760,6 +1786,281 @@ def distill_phase(card, batch_size=2, steps=4, stage1_steps=3, hw=(256, 256)):
                 batch_size=batch_size, fwd=fwd_res, bwd=bwd_res)
 
 
+# Module on the card against the same module and weights on the CPU: 1e-4 of
+# the CPU output's largest magnitude (f32 convolutions, matmuls and attention
+# summed in another order, TF32 off). The 3-D stylizers add the CPU output's
+# own distance from the module run in float64: AdaAttN3D's standard
+# deviation, sqrt(E[s^2] - E[s]^2) under the attention, cancels where a
+# point's attention is nearly one-hot (tests/test_torch_stylizers3d.py).
+SECONDARY_TOL = 1e-4
+# Geometry on the card against the CPU, values of order 1: rounding only;
+# lift_to_3d and get_depth times each point's least-squares system's
+# condition number (tests/test_torch_camera_geometry.py).
+GEOMETRY_TOL = 1e-5
+
+
+def hold_on_cpu(what, module, cpu_args, anchored=False):
+    """`module` (on the card) against a copy on the CPU, the same inputs
+    (CPU tensors, moved for the card): the largest difference over the CPU
+    output's largest magnitude, checked. Lists of outputs (NormalizedVGG's
+    slices) are held output by output."""
+    import copy
+
+    import torch
+
+    dev = next(module.parameters()).device
+    cpu = copy.deepcopy(module).cpu()
+    with torch.no_grad():
+        ours = module(*(a.to(dev) for a in cpu_args))
+        ref = cpu(*cpu_args)
+        exact = copy.deepcopy(cpu).double()(*(a.double() for a in cpu_args)) if anchored else None
+    if not isinstance(ours, (list, tuple)):
+        ours, ref, exact = [ours], [ref], [exact]
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(ours, ref)):
+        a = a.cpu()
+        if a.shape != b.shape or not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{what}: output {i} on the card is non-finite or misshapen: {tuple(a.shape)}")
+        scale = float(b.abs().max())
+        own = float((b.double() - exact[i]).abs().max()) if anchored else 0.0
+        err = float((a - b).abs().max())
+        if not scale > 0 or err > SECONDARY_TOL * scale + own:
+            raise AssertionError(f"{what}: output {i} differs from the CPU's by {err} > {SECONDARY_TOL} * {scale} + {own}")
+        worst = max(worst, err / scale)
+    return worst
+
+
+def timed_forward(fn, reps):
+    """Median ms of `reps` warm calls (CUDA events) and the peak device
+    memory, GiB, that one call allocates beyond what is resident."""
+    import torch
+
+    with torch.no_grad():
+        fn()
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - resident) / 2**30
+        return cuda_ms(fn, reps), peak
+
+
+def geometry_condition(directions, xy, extrinsics, intrinsics):
+    """Condition number of each point's 3x3 least-squares system in
+    lift_to_3d (the sum over its two rays of d d^T - I), in float64."""
+    import numpy as np
+
+    from styl3r_tpu_torch.geometry.projection import get_world_rays
+
+    _, xy_dirs = get_world_rays(*(x.cpu().double() for x in (xy, extrinsics, intrinsics)))
+    lhs = sum(np.einsum("ni,nj->nij", d, d) - np.eye(3) for d in (directions.cpu().double().numpy(), xy_dirs.numpy()))
+    return np.linalg.cond(lhs)
+
+
+def secondary_phase(card, device="cuda", hw=256, resnet="resnet50", dino="dino_vitb8", n_points=131072,
+                    check_points=8192, g=131072, reps=10):
+    """The rest of the model surface at full width, random weights from
+    fixed seeds, each module held against the same module on the CPU:
+    (a) get_backbone("resnet" / "dino") on b = 1, 2 views at hw^2; (b)
+    NormalizedVGG (all five slices) on an hw^2 style image, then the
+    Linear3D, AdaIN3D and AdaAttN3D stylizers at vgg_layer 3 on `n_points`
+    points (one per pixel of 2 views: the Gaussian cloud Styl3R predicts),
+    held on `check_points` of them; (c) get_intrinsic_embedding at degree 4
+    on 2 views, project_rays of view 0's hw^2 rays into view 1, lift_to_3d
+    and get_depth; (d) a render route for both kernels: the pose-recovery
+    cloud through render_gaussians on 2 views, the AdaAttN loss
+    (norm="adaattn", the training phases' random VGG19) plus the
+    depth-smoothness loss of the rendered depth weighted by the rendered
+    image, backpropagated to the Gaussians; both kernels held against their
+    plain versions on the route's inputs and cotangents, whose depth part is
+    not zero."""
+    import numpy as np
+    import torch
+
+    from styl3r_tpu_torch.geometry import camera_emb, epipolar_lines
+    from styl3r_tpu_torch.geometry.projection import get_world_rays, sample_image_grid
+    from styl3r_tpu_torch.geometry.se3 import se3_exp
+    from styl3r_tpu_torch.losses.adaattn import adaattn_loss
+    from styl3r_tpu_torch.losses.depth import depth_smoothness_loss
+    from styl3r_tpu_torch.losses.vgg import VGG19Features
+    from styl3r_tpu_torch.models.decoder import render_gaussians
+    from styl3r_tpu_torch.models.registry import get_backbone
+    from styl3r_tpu_torch.models.stylizers import (
+        AdaAttN3DStylizer,
+        AdaIN3DStylizer,
+        Linear3DStylizer,
+        NormalizedVGG,
+    )
+    from styl3r_tpu_torch.ops.rasterizer import composite
+    from styl3r_tpu_torch.utils.convert import init_like_flax_
+
+    dev = torch.device(device)
+    rng = np.random.default_rng(20)
+    res = {}
+
+    def card_module(module, seed):
+        init_like_flax_(module, torch.Generator().manual_seed(seed))
+        return module.to(dev).eval()
+
+    def tensor(x):
+        return torch.from_numpy(np.ascontiguousarray(x, np.float32))
+
+    # -- (a) backbones ------------------------------------------------------------
+    images = tensor(rng.uniform(-1, 1, (1, 2, hw, hw, 3)))
+    for name, kw, seed in (("resnet", dict(model=resnet, d_out=128), 30),
+                           ("dino", dict(model=dino, d_out=128, image_size=(hw, hw)), 31)):
+        module = card_module(get_backbone(name, **kw), seed)
+        err = hold_on_cpu(f"backbone {name}", module, (images,))
+        x = images.to(dev)
+        ms, peak = timed_forward(lambda: module(x), reps)
+        n_params = sum(p.numel() for p in module.parameters())
+        res[f"backbone_{name}"] = dict(model=kw["model"], params=n_params, ms=ms, peak_gib=peak, rel_err=err)
+        log(f"secondary: get_backbone({name!r}, model={kw['model']!r}, d_out=128), {n_params:,} parameters, on b = 1, "
+            f"2 views at {hw}x{hw}: within {err:.3g} of its largest output of the CPU's; forward {ms:.3f} ms (median "
+            f"of {reps}, CUDA events), peak {peak:.2f} GiB beyond what is resident [{card}]")
+        del module
+    torch.cuda.empty_cache()
+
+    # -- (b) NormalizedVGG and the 3-D stylizers ------------------------------------
+    style = tensor(rng.uniform(0, 1, (1, hw, hw, 3)))
+    vgg = card_module(NormalizedVGG(), 32)
+    err = hold_on_cpu("NormalizedVGG", vgg, (style,))
+    s = style.to(dev)
+    ms, peak = timed_forward(lambda: vgg(s), reps)
+    res["normalized_vgg"] = dict(ms=ms, peak_gib=peak, rel_err=err)
+    log(f"secondary: NormalizedVGG, all five slices of a {hw}x{hw} style image: within {err:.3g} of the CPU's; "
+        f"{ms:.3f} ms, peak {peak:.2f} GiB [{card}]")
+    del vgg
+    feats = tensor(rng.normal(0.0, 1.0, (1, n_points, 256)))
+    pick = torch.from_numpy(rng.choice(n_points, check_points, replace=False))
+    for name, module, seed in (("linear3d", Linear3DStylizer(vgg_layer=3), 33),
+                               ("adain3d", AdaIN3DStylizer(vgg_layer=3), 34),
+                               ("adaattn3d", AdaAttN3DStylizer(feats_in_dim=256, vgg_layer=3), 35)):
+        module = card_module(module, seed)
+        err = hold_on_cpu(f"stylizer {name}", module, (style, feats[:, pick]), anchored=True)
+        f = feats.to(dev)
+        with torch.no_grad():
+            out = module(s, f)
+        if out.shape != (1, n_points, 256) or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"stylizer {name}: non-finite or misshapen output at {n_points} points")
+        ms, peak = timed_forward(lambda: module(s, f), reps)
+        res[name] = dict(ms=ms, peak_gib=peak, rel_err=err, points=n_points, held_points=check_points)
+        log(f"secondary: {name} at vgg_layer 3 (256 channels over {(hw // 4) ** 2} style positions): within {err:.3g} "
+            f"of the CPU's on {check_points} points; {ms:.3f} ms at {n_points} points, peak {peak:.2f} GiB [{card}]")
+        del module, out, f
+    torch.cuda.empty_cache()
+
+    # -- (c) geometry -------------------------------------------------------------
+    k = torch.tensor([[0.9, 0, 0.5], [0, 0.95, 0.5], [0, 0, 1.0]]).expand(1, 2, 3, 3).contiguous()
+    ext = torch.stack([torch.eye(4), se3_exp(torch.tensor([0.3, -0.05, 0.1, 0.05, -0.2, 0.03]))])[None]
+    emb = camera_emb.get_intrinsic_embedding(k.to(dev), (hw, hw), 4)
+    emb_ref = camera_emb.get_intrinsic_embedding(k, (hw, hw), 4)
+    emb_err = float((emb.cpu() - emb_ref).abs().max())
+    if emb.shape != (1, 2, hw, hw, 25) or emb_err > GEOMETRY_TOL:
+        raise AssertionError(f"get_intrinsic_embedding: {tuple(emb.shape)}, {emb_err} from the CPU's")
+    emb_ms = cuda_ms(lambda: camera_emb.get_intrinsic_embedding(k.to(dev), (hw, hw), 4), reps)
+
+    coords, _ = sample_image_grid((hw, hw))
+    origins, directions = get_world_rays(coords.reshape(-1, 2), ext[0, 0], k[0, 0])
+
+    def segments(*args):
+        return epipolar_lines.project_rays(*args, ext[0, 1].to(args[0].device), k[0, 1].to(args[0].device))
+
+    seg, seg_ref = segments(origins.to(dev), directions.to(dev)), segments(origins, directions)
+    overlaps = seg_ref.overlaps_image
+    flips = int((seg.overlaps_image.cpu() != overlaps).sum())
+    if flips or not 0 < int(overlaps.sum()) < overlaps.numel():
+        raise AssertionError(f"project_rays: overlaps_image differs from the CPU's on {flips} rays, "
+                             f"{int(overlaps.sum())} of {overlaps.numel()} overlap")
+    seg_err = 0.0
+    for name in ("t_min", "t_max", "xy_min", "xy_max"):
+        a, b = getattr(seg, name).cpu()[overlaps], getattr(seg_ref, name)[overlaps]
+        diff = torch.where(a == b, torch.zeros_like(a), (a - b).abs() / b.abs().clamp(min=1.0))
+        seg_err = max(seg_err, float(diff.max()))
+    if seg_err > GEOMETRY_TOL:
+        raise AssertionError(f"project_rays: segments differ from the CPU's by {seg_err}")
+    seg_ms = cuda_ms(lambda: segments(origins.to(dev), directions.to(dev)), reps)
+    xy = 0.5 * (seg_ref.xy_min + seg_ref.xy_max)[overlaps]
+    lift_args = (origins[overlaps], directions[overlaps], xy, ext[0, 1], k[0, 1])
+    cond = geometry_condition(directions[overlaps], xy, ext[0, 1], k[0, 1])
+    lift_err = 0.0
+    for fn in (epipolar_lines.lift_to_3d, epipolar_lines.get_depth):
+        a, b = fn(*(x.to(dev) for x in lift_args)).cpu(), fn(*lift_args)
+        err = ((a - b).abs().reshape(len(cond), -1).amax(1) / b.abs().reshape(len(cond), -1).amax(1).clamp(min=1.0))
+        if not bool((err.double().numpy() <= GEOMETRY_TOL * cond).all()):
+            raise AssertionError(f"{fn.__name__}: differs from the CPU's beyond {GEOMETRY_TOL} x the condition number")
+        lift_err = max(lift_err, float((err.double().numpy() / cond).max()))
+    res["geometry"] = dict(embedding_ms=emb_ms, embedding_err=emb_err, project_rays_ms=seg_ms, segment_err=seg_err,
+                           rays=overlaps.numel(), overlapping=int(overlaps.sum()), lift_err_over_cond=lift_err,
+                           max_cond=float(cond.max()))
+    log(f"secondary: get_intrinsic_embedding, degree 4, 2 views at {hw}x{hw}: within {emb_err:.3g} of the CPU's, "
+        f"{emb_ms:.3f} ms; project_rays of {overlaps.numel()} rays of view 0 into view 1: overlaps_image equal on every "
+        f"ray ({int(overlaps.sum())} overlap), segments within {seg_err:.3g}, {seg_ms:.3f} ms; lift_to_3d and "
+        f"get_depth within {lift_err:.3g} x each point's condition number (up to {float(cond.max()):.3g}) [{card}]")
+
+    # -- (d) the AdaAttN + depth-smoothness render route ----------------------------
+    gaussians = recovery_cloud(dev, g)
+    leaves = [x.detach().requires_grad_() if x is not None else None for x in gaussians]
+    cloud = type(gaussians)(*leaves)
+    ext_d, k_d = ext.to(dev), k.to(dev)
+    near, far = torch.full((1, 2), 0.1, device=dev), torch.full((1, 2), 100.0, device=dev)
+    render_kwargs = dict(max_per_tile=2048, max_tiles_per_gaussian=8)
+    vgg19 = VGG19Features().to(dev)
+    init_like_flax_(vgg19, torch.Generator(dev).manual_seed(3))
+    vgg19.requires_grad_(False)
+    target = tensor(rng.uniform(0, 1, (1, 2, hw, hw, 3))).to(dev)
+    style_d = tensor(rng.uniform(0, 1, (1, hw, hw, 3))).to(dev)
+
+    def route_loss(color, depth):  # (1, 2, h, w, 3), (1, 2, h, w)
+        style_term, _ = adaattn_loss(vgg19, color, target, style_d, norm="adaattn")
+        return style_term + depth_smoothness_loss(depth, image=color)
+
+    def step():
+        out = render_gaussians(cloud, ext_d, k_d, near, far, (hw, hw), **render_kwargs)
+        loss = route_loss(out.color, out.depth)
+        return loss, torch.autograd.grad(loss, [x for x in leaves if x is not None]), out
+
+    steps = 3
+    composite.launches = composite.backward_launches = 0
+    with torch.enable_grad():
+        loss, grads, out = step()
+        route_ms = cuda_ms(lambda: step(), steps - 1)
+    launches = {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}
+    if (launches["composite_fwd"], launches["composite_bwd"]) != (steps, steps):
+        raise AssertionError(f"adaattn + depth route: launches {launches}, expected {steps} of each")
+    if not math.isfinite(float(loss.detach())) or not all(bool(torch.isfinite(x).all()) and bool((x != 0).any()) for x in grads):
+        raise AssertionError("adaattn + depth route: non-finite loss or a zero or non-finite gradient")
+    live = int(out.live_pairs.max())
+    with torch.no_grad():
+        inputs = main_path_inputs(gaussians, ext_d, k_d, near, far, (hw, hw), render_kwargs)
+        fwd = check_composite(inputs, 2048)
+        cot = render_cotangents(inputs, 2048, lambda color, depth: route_loss(color[None], depth[None]))
+        if not bool((cot[1] != 0).any()):
+            raise AssertionError("adaattn + depth route: the loss's depth cotangent is 0")
+        bwd = check_composite_bwd(inputs, 2048, *cot)
+    if not bwd["nonzero_by_column"][composite.A_D]:
+        raise AssertionError("adaattn + depth route: the backward's depth column is 0")
+    res["route"] = dict(ms_per_step=route_ms, loss=float(loss.detach()), live_pairs=live, launches=launches,
+                        depth_cotangent_nonzero=int((cot[1] != 0).sum()),
+                        depth_grad_nonzero=bwd["nonzero_by_column"][composite.A_D])
+    log(f"secondary: render route, {g} Gaussians on 2 views at {hw}x{hw} ({live} live pairs), AdaAttN loss "
+        f"(norm adaattn, random VGG19) + depth smoothness of the rendered depth weighted by the rendered image, "
+        f"backpropagated to the Gaussians: {route_ms:.2f} ms a step (median of {steps - 1}), loss {res['route']['loss']:.5f}; "
+        f"launches fwd {launches['composite_fwd']} bwd {launches['composite_bwd']} [{card}]")
+    log(f"kernel composite_fwd, the adaattn + depth route's inputs: agrees with the plain version, max err "
+        f"{fwd['max_abs_err']:.3g}; {fwd_windows_line(fwd)}")
+    log(f"kernel composite_bwd, the adaattn + depth route's inputs and cotangents ({res['route']['depth_cotangent_nonzero']} "
+        f"non-zero depth cotangents): agrees with the plain version, max err {bwd['max_abs_err']:.3g} "
+        f"({bwd['max_rel_err']:.3g} of its column's largest gradient), {bwd['nonzero_by_column'][composite.A_D]} non-zero "
+        f"depth gradients, {bwd['pairs_with_grad']} pairs with a gradient of {bwd['walked']} walked; "
+        f"{windows_line(bwd)}")
+    del cloud, leaves, grads, out, inputs, vgg19, gaussians
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(res, fwd=fwd, bwd=bwd)
+
+
 def main():
     import torch
 
@@ -1961,6 +2262,14 @@ def main():
         if not launches["distill_stage1"][kernel]:
             raise AssertionError(f"kernel {kernel} was not launched by stage 1 with the distillation term")
 
+    # -- secondary modules: backbones, 3-D stylizers, geometry, and the
+    # AdaAttN + depth-smoothness render route ------------------------------
+    t0 = time.perf_counter()
+    secondary = secondary_phase(card)
+    secondary["seconds"] = time.perf_counter() - t0
+    log(f"secondary: phase in {secondary['seconds']:.1f} s")
+    launches["adaattn_depth"] = secondary["route"].pop("launches")
+
     # -- kernel times: device time from the profiler, after the paths'
     # timing, which the profiler's attached tracing would slow down ---------
     for what, res in (("dense cloud", res_dense), ("serving path's own inputs", res_main),
@@ -1970,7 +2279,8 @@ def main():
                       ("pose recovery's first step", recovery_fwd),
                       ("eval_pose's refinement, first step", evaluation["fwd"]),
                       ("the refinement recovery's first step", evaluation["recovery_fwd"]),
-                      ("stage 1 + distill's first step", distill["fwd"])):
+                      ("stage 1 + distill's first step", distill["fwd"]),
+                      ("the adaattn + depth route's inputs", secondary["fwd"])):
         composite_device_ms(res)
         log(f"kernel composite_fwd, {what}: {res['ms']:.4f} ms on the device, {res['call_ms']:.4f} ms a call "
             f"(CUDA events, median of 20), plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.5f} ms "
@@ -1982,7 +2292,8 @@ def main():
                       ("pose recovery's first step", recovery_bwd),
                       ("eval_pose's refinement, first step", evaluation["bwd"]),
                       ("the refinement recovery's first step", evaluation["recovery_bwd"]),
-                      ("stage 1 + distill's first step", distill["bwd"])):
+                      ("stage 1 + distill's first step", distill["bwd"]),
+                      ("the adaattn + depth route's inputs and cotangents", secondary["bwd"])):
         composite_bwd_device_ms(res)
         log(f"kernel composite_bwd, {what}: {res['ms']:.4f} ms on the device (window sums "
             f"{res['phase_ms']['sums']:.4f} + gradients {res['phase_ms']['grad']:.4f}), {res['call_ms']:.4f} ms a "
@@ -2011,7 +2322,7 @@ def main():
                 "max_abs_err": res["max_abs_err"], "max_rel_err": res["max_rel_err"]}
 
     all_bwd = (bwd_dense, bwd_main, infer["bwd"], fit["bwd"], recovery_bwd, evaluation["bwd"],
-               evaluation["recovery_bwd"], distill["bwd"])
+               evaluation["recovery_bwd"], distill["bwd"], secondary["bwd"])
 
     kernels = [
         {
@@ -2024,7 +2335,8 @@ def main():
             "max_abs_err": max(res["max_abs_err"] for res in (res_dense, res_main, res_train, infer["fwd"],
                                                                infer["video_fwd"], fit["fwd"], fit["ortho_fwd"],
                                                                recovery_fwd, evaluation["fwd"],
-                                                               evaluation["recovery_fwd"], distill["fwd"])),
+                                                               evaluation["recovery_fwd"], distill["fwd"],
+                                                               secondary["fwd"])),
             **{k: res_main[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
             "windows": res_main["windows"],
@@ -2040,6 +2352,7 @@ def main():
             "refine_recovery_inputs": {**fwd_numbers(evaluation["recovery_fwd"]),
                                        "max_abs_err": evaluation["recovery_fwd"]["max_abs_err"]},
             "distill_inputs": {**fwd_numbers(distill["fwd"]), "max_abs_err": distill["fwd"]["max_abs_err"]},
+            "adaattn_depth_inputs": {**fwd_numbers(secondary["fwd"]), "max_abs_err": secondary["fwd"]["max_abs_err"]},
         },
         {
             "name": "composite_bwd",
@@ -2063,6 +2376,8 @@ def main():
             "refine_inputs": bwd_numbers(evaluation["bwd"]),
             "refine_recovery_inputs": bwd_numbers(evaluation["recovery_bwd"]),
             "distill_inputs": bwd_numbers(distill["bwd"]),
+            "adaattn_depth_inputs": {**bwd_numbers(secondary["bwd"]),
+                                     "nonzero_by_column": secondary["bwd"]["nonzero_by_column"]},
         },
     ]
     training = {f"stage{i}": {k: st[k] for k in ("ms", "examples_per_s", "peak_gib", "live_pairs")}
@@ -2078,9 +2393,10 @@ def main():
     evaluation_summary = {k: v for k, v in evaluation.items()
                           if k not in ("fwd", "bwd", "recovery_fwd", "recovery_bwd")}
     distill_summary = {k: v for k, v in distill.items() if k not in ("fwd", "bwd")}
+    secondary_summary = {k: v for k, v in secondary.items() if k not in ("fwd", "bwd")}
     print(json.dumps({"kernels": kernels, "training": training, "inference": inference,
                       "evaluation": evaluation_summary, "fit": fit_summary, "distill": distill_summary,
-                      "card": card}), flush=True)
+                      "secondary": secondary_summary, "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

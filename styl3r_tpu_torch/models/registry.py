@@ -2,18 +2,13 @@
 styl3r_tpu/models/registry.py; reference `src/model/encoder/__init__.py`,
 `backbone/__init__.py`, `decoder/__init__.py`, `distiller`).
 
-Names map to the port's modules under the JAX registry's names. The resnet
-and dino backbones (`models/backbones.py`) are not ported yet: asking for
-one raises NotImplementedError. An unknown name raises ValueError.
+Names map to the port's modules under the JAX registry's names; an unknown
+name raises ValueError.
 """
 
 from __future__ import annotations
 
 from functools import partial
-
-_BACKBONES_NOT_PORTED = (
-    "the {} backbone (models/backbones.py) is not ported to styl3r_tpu_torch yet: ROADMAP queue 1, item 6"
-)
 
 
 def get_backbone(name: str, **kwargs):
@@ -25,8 +20,14 @@ def get_backbone(name: str, **kwargs):
         return MultiViewCrocoBackbone(**kwargs)
     if name == "croco_enc":
         return CrocoEncBackbone(**kwargs)
-    if name in ("resnet", "dino"):
-        raise NotImplementedError(_BACKBONES_NOT_PORTED.format(name))
+    if name == "resnet":
+        from .backbones import BackboneResnet
+
+        return BackboneResnet(**kwargs)
+    if name == "dino":
+        from .backbones import BackboneDino
+
+        return BackboneDino(**kwargs)
     raise ValueError(f"unknown backbone: {name}")
 
 

@@ -166,6 +166,128 @@ def _perceptual(p: Mapping, out: Dict) -> None:
             out[name] = np.asarray(leaf)
 
 
+def _join(name: str, key: str) -> str:
+    return f"{name}.{key}" if name else key
+
+
+def _conv1d(p: Mapping, out: Dict, name: str) -> None:
+    """A flax Dense in place of a kernel-1 Conv1d."""
+    out[f"{name}.weight"] = np.asarray(p["kernel"]).T[:, :, None]
+    out[f"{name}.bias"] = np.asarray(p["bias"])
+
+
+def _frozen_bn(p: Mapping, out: Dict, name: str, eps: float = 1e-5) -> None:
+    """FrozenNorm's folded scale and bias -> an eval-mode BatchNorm with
+    zero mean and unit variance (running_var + eps = 1)."""
+    scale = np.asarray(p["scale"])
+    out[f"{name}.weight"] = scale
+    out[f"{name}.bias"] = np.asarray(p["bias"])
+    out[f"{name}.running_mean"] = np.zeros_like(scale)
+    out[f"{name}.running_var"] = np.full_like(scale, 1.0 - eps)
+    out[f"{name}.num_batches_tracked"] = np.zeros(())
+
+
+def _resnet_trunk(p: Mapping, out: Dict, name: str) -> None:
+    """ResNetTrunk: `layerL_B` -> torchvision's `layerL.B`; norms only where
+    they hold weights (dino_resnet50's BatchNorm)."""
+    _conv(p["conv1"], out, _join(name, "conv1"))
+    if "bn1" in p:
+        _frozen_bn(p["bn1"], out, _join(name, "bn1"))
+    for key, block in p.items():
+        if not key.startswith("layer"):
+            continue
+        layer, index = key[len("layer"):].split("_")
+        prefix = _join(name, f"layer{layer}.{index}")
+        for sub, leaf in block.items():
+            if sub == "downsample_conv":
+                _conv(leaf, out, f"{prefix}.downsample.0")
+            elif sub == "downsample_norm":
+                _frozen_bn(leaf, out, f"{prefix}.downsample.1")
+            elif sub.startswith("conv"):
+                _conv(leaf, out, f"{prefix}.{sub}")
+            else:
+                _frozen_bn(leaf, out, f"{prefix}.{sub}")
+
+
+def _backbone_resnet(p: Mapping, out: Dict, name: str) -> None:
+    _resnet_trunk(p["model"], out, _join(name, "model"))
+    for key, leaf in p.items():
+        if key.startswith("projection"):
+            _conv(leaf, out, _join(name, f"projections.layer{key[len('projection'):]}"))
+
+
+def _dino_vit(p: Mapping, out: Dict, name: str) -> None:
+    out[_join(name, "cls_token")] = np.asarray(p["cls_token"])
+    out[_join(name, "pos_embed")] = np.asarray(p["pos_embed"])
+    _conv(p["patch_embed"], out, _join(name, "patch_embed.proj"))
+    _layernorm(p["norm"], out, _join(name, "norm"))
+    i = 0
+    while f"blocks_{i}_norm1" in p:
+        block = _join(name, f"blocks.{i}")
+        for norm in ("norm1", "norm2"):
+            _layernorm(p[f"blocks_{i}_{norm}"], out, f"{block}.{norm}")
+        for flax_name, port_name in (("qkv", "attn.qkv"), ("proj", "attn.proj"), ("fc1", "mlp.fc1"),
+                                     ("fc2", "mlp.fc2")):
+            _linear(p[f"blocks_{i}_{flax_name}"], out, f"{block}.{port_name}")
+        i += 1
+
+
+def _backbone_dino(p: Mapping, out: Dict, name: str) -> None:
+    _backbone_resnet(p["resnet_backbone"], out, _join(name, "resnet_backbone"))
+    _dino_vit(p["dino"], out, _join(name, "dino"))
+    for mlp in ("global_token_mlp", "local_token_mlp"):
+        _linear(p[f"{mlp}_fc1"], out, _join(name, f"{mlp}.0"))
+        _linear(p[f"{mlp}_fc2"], out, _join(name, f"{mlp}.2"))
+
+
+def _normalized_vgg(p: Mapping, out: Dict, name: str) -> None:
+    """`conv<index>` -> make_vgg's `<index>`. A flax NormalizedVGG holds only
+    the convs its forward runs; the port's holds all of make_vgg's."""
+    for key, leaf in p.items():
+        _conv(leaf, out, _join(name, key[len("conv"):]))
+
+
+def _mlp1d(p: Mapping, out: Dict, name: str) -> None:
+    """MLP1d's `fc<i>` -> the Conv1d at Sequential index 2i."""
+    for key, leaf in p.items():
+        _conv1d(leaf, out, _join(name, str(2 * int(key[len("fc"):]))))
+
+
+def _lst(p: Mapping, out: Dict, name: str) -> None:
+    for net in ("c_net", "s_net"):
+        n = len(p[net])
+        for i in range(n):
+            _conv1d(p[net][f"fc{i}"], out, _join(name, f"{net}.{i}.0" if i < n - 1 else f"{net}.{i}"))
+    for conv in ("c_zipper", "c_unzipper"):
+        _conv1d(p[conv], out, _join(name, conv))
+    for fc in ("c_fc", "s_fc"):
+        _linear(p[fc], out, _join(name, fc))
+
+
+def _stylizer3d(p: Mapping, out: Dict, name: str) -> None:
+    """Linear3DStylizer, AdaIN3DStylizer or AdaAttN3DStylizer."""
+    for key, leaf in p.items():
+        child = _join(name, key)
+        if key == "vgg":
+            _normalized_vgg(leaf, out, child)
+        elif key == "lst":
+            _lst(leaf, out, child)
+        elif key.endswith("zipper"):
+            _mlp1d(leaf, out, child)
+        else:  # q_embed, k_embed, s_embed
+            _conv1d(leaf, out, child)
+
+
+# Whole modules whose flax params map onto the port's module of that kind.
+_MODULES = {
+    "backbone_resnet": _backbone_resnet,
+    "backbone_dino": _backbone_dino,
+    "normalized_vgg": _normalized_vgg,
+    "lst": _lst,
+    "stylizer3d": _stylizer3d,
+}
+
+
 def from_jax_params(
     params: Mapping, prefix: Optional[str] = None, model: str = "styl3r"
 ) -> Dict[str, torch.Tensor]:
@@ -176,12 +298,19 @@ def from_jax_params(
     Styl3rTokenStyleEncoder2View / NoPoSplatMultiEncoder params -> the
     port's encoders of the same names; "teacher": Dust3RTeacher params ->
     models/distiller.py's; "vgg19" / "lpips": VGG19Features / LPIPSVgg16
-    params -> the port's modules of the same names (losses/). Only
-    "styl3r" has a default prefix."""
+    params -> the port's modules of the same names (losses/);
+    "backbone_resnet" / "backbone_dino" / "normalized_vgg" / "lst":
+    BackboneResnet / BackboneDino (models/backbones.py), NormalizedVGG / LST
+    (models/stylizers.py); "stylizer3d": Linear3DStylizer, AdaIN3DStylizer or
+    AdaAttN3DStylizer. A NormalizedVGG's convs past its layer are not in the
+    flax params: load those with strict=False. Only "styl3r" has a default
+    prefix."""
     p = params["params"] if "params" in params else params
     out: Dict[str, np.ndarray] = {}
     if model in ("vgg19", "lpips"):
         _perceptual(p, out)
+    elif model in _MODULES:
+        _MODULES[model](p, out, "")
     elif model in _LAYOUTS:
         if model == "styl3r" and prefix is None:
             prefix = "encoder."
@@ -206,12 +335,18 @@ def init_like_flax_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Redraw every weight of `module` in place the way flax's defaults do:
     lecun-normal kernels (fan_in = input features x receptive field; for a
     k=s ConvTranspose2d, its input channels, as for the flax dense it
-    replaces), zero biases, LayerNorm ones and zeros."""
+    replaces), zero biases, LayerNorm and BatchNorm ones and zeros, and
+    DinoViT's zero cls token and N(0, 0.02) position embedding."""
+    from ..models.backbones import DinoViT
+
     for m in module.modules():
-        if isinstance(m, nn.LayerNorm):
+        if isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
             m.weight.fill_(1.0)
             m.bias.zero_()
-        elif isinstance(m, (nn.Linear, nn.Conv2d, nn.ConvTranspose2d)):
+        elif isinstance(m, DinoViT):
+            m.cls_token.zero_()
+            nn.init.normal_(m.pos_embed, 0.0, 0.02, generator=generator)
+        elif isinstance(m, (nn.Linear, nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d)):
             w = m.weight
             if isinstance(m, nn.ConvTranspose2d):
                 fan_in = w.shape[0]

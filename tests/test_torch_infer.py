@@ -51,6 +51,20 @@ K = np.asarray([[1.0, 0, 0.5], [0, 1.0, 0.5], [0, 0, 1]], np.float32)
 RENDER = dict(max_per_tile=1024)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """torch on one intra-op thread for this file. Under pytest-xdist with
+    6 workers on an 8-core host each worker's default of a thread a core
+    oversubscribes the host, and the alignment loops of small ops wait on
+    spinning threads: test_pose_alignment_recovers_perturbation took 459 s
+    there against 5 s alone, and 13 s on one thread beside 7 busy
+    processes. Alone the file takes as long either way (80 s)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x, np.float32))
 

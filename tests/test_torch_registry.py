@@ -28,6 +28,7 @@ from styl3r_tpu.utils import checkpoint as jckpt
 from styl3r_tpu_torch.geometry import ptc_geometry as tptc
 from styl3r_tpu_torch.models import dpt as tdpt
 from styl3r_tpu_torch.models import registry
+from styl3r_tpu_torch.models.backbones import BackboneDino, BackboneResnet
 from styl3r_tpu_torch.models.croco import CrocoEncBackbone, MultiViewCrocoBackbone
 from styl3r_tpu_torch.models.distiller import Dust3RTeacher
 from styl3r_tpu_torch.models.encoder import NoPoSplatMultiEncoder, Styl3rEncoder, Styl3rTokenStyleEncoder2View
@@ -227,9 +228,8 @@ def test_registry_names_and_errors():
     for name in ("croco", "croco_multi"):
         assert type(registry.get_backbone(name, **tiny)) is MultiViewCrocoBackbone
     assert type(registry.get_backbone("croco_enc", enc_depth=1, enc_dim=32, enc_heads=2)) is CrocoEncBackbone
-    for name in ("resnet", "dino"):
-        with pytest.raises(NotImplementedError, match="models/backbones.py.*item 6"):
-            registry.get_backbone(name)
+    assert type(registry.get_backbone("resnet", model="resnet18", num_layers=2, d_out=4)) is BackboneResnet
+    assert type(registry.get_backbone("dino", model="dino_vits8", d_out=4, image_size=(16, 16))) is BackboneDino
     head_kw = dict(hook_dims=HOOK_DIMS, **HEAD)
     assert type(registry.get_head("dpt", last_dim=16, **head_kw)) is tdpt.DPTPts3dHead
     assert type(registry.get_head("dpt_gs", out_channels=8, **head_kw)) is tdpt.DPTGSHead
