@@ -68,7 +68,15 @@ def regr3d_loss(
     conf_threshold: float = 3.0,
     normalize: bool = True,
     disable_view1: bool = False,
+    data=None,
 ) -> Tensor:
+    """With `data` (a parallel/mesh.py DataGroup), the points are this rank's
+    rows of a global batch split over data.world ranks: each view's mean is
+    over the global batch's valid points, as in one process. Each rank
+    divides its sum by the global count (the counts come from the teacher's
+    masks and carry no gradient) and scales by W, so that the ranks' mean
+    loss and averaged gradient are the global batch's; a per-rank ratio
+    averaged over the ranks would be another loss."""
     valid1 = _quantile_mask(gt_pts1)
     valid2 = _quantile_mask(gt_pts2)
     if conf1 is not None:
@@ -83,8 +91,12 @@ def regr3d_loss(
 
     loss1 = torch.linalg.norm(pr_pts1 - gt_pts1, dim=-1)
     loss2 = torch.linalg.norm(pr_pts2 - gt_pts2, dim=-1)
-    mean1 = (loss1 * v1).sum() / torch.clamp(v1.sum(), min=1.0)
-    mean2 = (loss2 * v2).sum() / torch.clamp(v2.sum(), min=1.0)
+    counts, scale = torch.stack([v1.sum(), v2.sum()]), 1.0
+    if data is not None:
+        counts, scale = data.all_reduce_(counts), float(data.world)
+    counts = torch.clamp(counts, min=1.0)
+    mean1 = scale * (loss1 * v1).sum() / counts[0]
+    mean2 = scale * (loss2 * v2).sum() / counts[1]
     if disable_view1:
         return mean2
     return mean1 + mean2

@@ -16,7 +16,10 @@ f32. The weights stay f32 and are cast at use (`trunk_dtype`, as flax's
 
 Training: the gs_params tower's dropout (rate 0.1, after the conv3x3's
 ReLU) is live in training mode and draws its mask from the
-torch.Generator the forward is given.
+torch.Generator the forward is given. In a data-parallel step
+(`shard_dropout_`) each rank draws the mask of the global batch, as the JAX
+step's replicated key does, and keeps its own rows, so W ranks drop what
+one process drops on the whole batch.
 """
 
 from __future__ import annotations
@@ -33,13 +36,19 @@ from .precision import compute_in
 GS_DROPOUT = 0.1  # gs_params tower dropout (reference dpt_block.py)
 
 
-def dropout(x: Tensor, p: float, training: bool, generator: Optional[torch.Generator]) -> Tensor:
+def dropout(
+    x: Tensor, p: float, training: bool, generator: Optional[torch.Generator], shard: Tuple[int, int] = (0, 1)
+) -> Tensor:
     """Inverted dropout with its mask drawn from `generator` (nn.Dropout
     takes none): zero with probability p, scale the rest by 1 / (1 - p).
-    The identity outside training."""
+    The identity outside training. With `shard` = (rank, W), x holds rank's
+    rows of a global batch of W * len(x) rows, in rank order: the mask is
+    drawn for all of them and rank's rows are kept."""
     if not training or p == 0.0:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    rank, world = shard
+    n = x.shape[0]
+    keep = torch.rand((world * n, *x.shape[1:]), generator=generator, device=x.device)[rank * n:(rank + 1) * n] >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -292,6 +301,7 @@ class GSParamsHead(nn.Module):
             self.dpt.input_merger = nn.Sequential(
                 nn.Conv2d(3, feature_dim, 7, padding=3), nn.ReLU()
             )
+        self.dropout_shard = (0, 1)  # (rank, W): see shard_dropout_
 
     def cast_trunk(self, dtype: torch.dtype) -> None:
         self.dpt.act_postprocess.to(dtype)
@@ -310,8 +320,18 @@ class GSParamsHead(nn.Module):
             if images is not None:
                 x = x + dpt.input_merger(images.permute(0, 3, 1, 2).to(dpt.dtype))
             x = F.relu(head["0"](x.to(dpt.dtype)))
-        x = dropout(x, GS_DROPOUT, self.training, generator)
+        x = dropout(x, GS_DROPOUT, self.training, generator, self.dropout_shard)
         return _nhwc(head["4"](x.to(head["4"].weight.dtype)))
+
+
+def shard_dropout_(model: nn.Module, rank: int, world: int) -> None:
+    """Make the gs towers' dropout in `model` draw the global batch's masks
+    and keep rank's rows (dropout's `shard`): the model then sees rank
+    `rank`'s 1/W of each global batch, as parallel/mesh.py::shard_batch cuts
+    it (its rows of every (b, ...) and batch-major (b * v, ...) tensor)."""
+    for m in model.modules():
+        if isinstance(m, GSParamsHead):
+            m.dropout_shard = (rank, world)
 
 
 class DPTGSHead(GSParamsHead):

@@ -36,32 +36,36 @@ class Mlp(nn.Module):
 
 
 class Attention(nn.Module):
-    """Self-attention with optional RoPE2D on q/k."""
+    """Self-attention with optional RoPE2D on q/k. The head width is fixed at
+    construction and `num_heads` counts the heads this module computes: all
+    of them, or this rank's under tensor parallelism (parallel/tp.py), where
+    qkv's rows hold [q | k | v] of those heads and proj takes their width."""
 
     def __init__(self, dim: int, num_heads: int, rope_base: Optional[float] = None):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.rope_base = rope_base
         self.qkv = nn.Linear(dim, dim * 3)
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x: Tensor, pos: Optional[Tensor]) -> Tensor:
-        b, n, c = x.shape
-        head_dim = c // self.num_heads
-        q, k, v = self.qkv(x).reshape(b, n, 3, self.num_heads, head_dim).unbind(2)
+        b, n, _ = x.shape
+        q, k, v = self.qkv(x).reshape(b, n, 3, self.num_heads, self.head_dim).unbind(2)
         if self.rope_base is not None:
             q = apply_rope2d(q, pos, self.rope_base)
             k = apply_rope2d(k, pos, self.rope_base)
-        out = dot_product_attention(q, k, v, scale=head_dim**-0.5)
-        return self.proj(out.reshape(b, n, c))
+        out = dot_product_attention(q, k, v, scale=self.head_dim**-0.5)
+        return self.proj(out.reshape(b, n, self.num_heads * self.head_dim))
 
 
 class CrossAttention(nn.Module):
-    """Cross-attention with optional RoPE2D on q/k."""
+    """Cross-attention with optional RoPE2D on q/k; heads as in Attention."""
 
     def __init__(self, dim: int, num_heads: int, rope_base: Optional[float] = None):
         super().__init__()
         self.num_heads = num_heads
+        self.head_dim = dim // num_heads
         self.rope_base = rope_base
         self.projq = nn.Linear(dim, dim)
         self.projk = nn.Linear(dim, dim)
@@ -76,18 +80,18 @@ class CrossAttention(nn.Module):
         qpos: Optional[Tensor],
         kpos: Optional[Tensor],
     ) -> Tensor:
-        b, nq, c = query.shape
-        head_dim = c // self.num_heads
-        q = self.projq(query).reshape(b, nq, self.num_heads, head_dim)
-        k = self.projk(key).reshape(b, key.shape[1], self.num_heads, head_dim)
-        v = self.projv(value).reshape(b, value.shape[1], self.num_heads, head_dim)
+        b, nq, _ = query.shape
+        heads, head_dim = self.num_heads, self.head_dim
+        q = self.projq(query).reshape(b, nq, heads, head_dim)
+        k = self.projk(key).reshape(b, key.shape[1], heads, head_dim)
+        v = self.projv(value).reshape(b, value.shape[1], heads, head_dim)
         if self.rope_base is not None:
             if qpos is not None:
                 q = apply_rope2d(q, qpos, self.rope_base)
             if kpos is not None:
                 k = apply_rope2d(k, kpos, self.rope_base)
         out = dot_product_attention(q, k, v, scale=head_dim**-0.5)
-        return self.proj(out.reshape(b, nq, c))
+        return self.proj(out.reshape(b, nq, heads * head_dim))
 
 
 class Block(nn.Module):

@@ -3,6 +3,7 @@
 
     python -m styl3r_tpu_torch.train.main --config configs/experiment/re10k_3view_style.yaml \
         [--max-steps N] [--cpu] [key.sub=value ...]
+    torchrun --nproc_per_node=N -m styl3r_tpu_torch.train.main ...   # data-parallel over N cards
 
 The experiment config selects stage-0 distillation
 (re10k_style_distill.yaml: a frozen MASt3R teacher, `train.distiller=<.pth>`,
@@ -16,6 +17,9 @@ Weights:
   * checkpointing.load=<file>: the weights of a checkpoint, and with
     checkpointing.resume=true also its optimizer state, step and data position.
 The final state goes to <checkpointing.output_dir>/checkpoints/final.pt.
+Under torchrun each process is one rank of a data-parallel run over NCCL (gloo
+with --cpu); `train.batch_size` is the global batch, split over the ranks, and
+rank 0 alone prints, logs and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -33,7 +37,22 @@ def main(argv=None, model=None, teacher=None):
     parser.add_argument("overrides", nargs="*", help="dotted key=value overrides")
     args = parser.parse_args(argv)
 
-    from ..device import resolve_device
+    import torch.distributed as dist
+
+    from ..parallel import init_distributed
+
+    rank, world, device = init_distributed("cpu" if args.cpu else "cuda")
+    try:
+        state = _train(args, rank, world, device, model, teacher)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    if rank == 0:
+        print("done")
+    return state
+
+
+def _train(args, rank: int, world: int, device, model, teacher):
     from ..utils.checkpoint import (
         convert_stylizer_weights,
         load_torch_state_dict,
@@ -42,9 +61,12 @@ def main(argv=None, model=None, teacher=None):
     from ..utils.config import load_config
     from .trainer import Trainer
 
-    device = resolve_device("cpu" if args.cpu else None)
+    def say(msg):
+        if rank == 0:
+            print(msg)
+
     cfg = load_config(args.config, args.overrides)
-    print(f"device: {device}; mode={cfg.mode} datasets={len(cfg.datasets)} batch={cfg.train.batch_size}")
+    say(f"device: {device}; ranks={world} mode={cfg.mode} datasets={len(cfg.datasets)} batch={cfg.train.batch_size}")
 
     trainer = Trainer(cfg, model=model, device=device, teacher=teacher)
     try:
@@ -54,23 +76,22 @@ def main(argv=None, model=None, teacher=None):
         if cfg.model.encoder.pretrained_weights:
             sd = load_torch_state_dict(cfg.model.encoder.pretrained_weights)
             warm_start = warm_start_encoder_params(sd, cfg.model.encoder.sh_degree)
-            print(f"warm-started encoder from {cfg.model.encoder.pretrained_weights}")
+            say(f"warm-started encoder from {cfg.model.encoder.pretrained_weights}")
         if cfg.model.encoder.stylizer_pretrained_weights:
             sty = convert_stylizer_weights(load_torch_state_dict(cfg.model.encoder.stylizer_pretrained_weights))
             warm_start = {**(warm_start or {}), **sty}
-            print(f"warm-started stylizer from {cfg.model.encoder.stylizer_pretrained_weights}")
+            say(f"warm-started stylizer from {cfg.model.encoder.stylizer_pretrained_weights}")
 
         # A resume restores the weights with the rest of the state (fit).
         init_params = None
         if cfg.checkpointing.load and not cfg.checkpointing.resume:
             init_params = trainer.load_params_lazy(cfg.checkpointing.load)
-            print(f"loaded weights from {cfg.checkpointing.load}")
+            say(f"loaded weights from {cfg.checkpointing.load}")
 
         state = trainer.fit(max_steps=args.max_steps, init_params=init_params, warm_start=warm_start)
         trainer.save_checkpoint(state, trainer.output_dir / "checkpoints" / "final.pt")
     finally:
         trainer.close()
-    print("done")
     return state
 
 

@@ -22,6 +22,10 @@ from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tu
 import torch
 import torch.nn as nn
 from torch import Tensor
+from torch.distributed.tensor import DTensor
+
+from ..parallel.mesh import all_reduce_grads_, local_tensor, reduce_metrics
+from ..parallel.tp import global_sq_norm
 
 
 def make_schedule(
@@ -44,11 +48,12 @@ def make_schedule(
 def clip_by_global_norm_(params: Sequence[Tensor], max_norm: float) -> Tensor:
     """optax.clip_by_global_norm in place on the params' grads: g * max_norm
     / |g| where |g| >= max_norm (torch's clip_grad_norm_ adds 1e-6 to the
-    norm). Returns the norm before clipping."""
+    norm). Under tensor parallelism the norm is the whole gradient's
+    (parallel/tp.py::global_sq_norm). Returns the norm before clipping."""
     grads = [p.grad for p in params]
-    norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads))
+    norm = torch.sqrt(global_sq_norm(grads))
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-    torch._foreach_mul_(grads, scale)
+    torch._foreach_mul_([local_tensor(g) for g in grads], scale)
     return norm
 
 
@@ -70,12 +75,18 @@ class GroupedAdamW:
         groups = {k: v for k, v in groups.items() if v[0]}
         self.params = [p for ps, _ in groups.values() for p in ps]
         self.grad_clip = grad_clip
-        self.adamw = torch.optim.AdamW(
-            [{"params": ps, "lr": lr * scale} for ps, scale in groups.values()],
-            lr=lr, betas=(0.9, 0.95), eps=1e-8, weight_decay=weight_decay,
-        )
+        # A tensor-parallel model's DTensor weights go in param groups of their
+        # own: AdamW's foreach kernels take no list that mixes them with
+        # plain tensors.
+        param_groups = [
+            {"params": kind, "lr": lr * scale}
+            for ps, scale in groups.values()
+            for kind in ([p for p in ps if not isinstance(p, DTensor)], [p for p in ps if isinstance(p, DTensor)])
+            if kind
+        ]
+        self.adamw = torch.optim.AdamW(param_groups, lr=lr, betas=(0.9, 0.95), eps=1e-8, weight_decay=weight_decay)
         factor = make_schedule(1.0, warmup_steps, total_steps)
-        self.schedule = torch.optim.lr_scheduler.LambdaLR(self.adamw, [factor] * len(groups))
+        self.schedule = torch.optim.lr_scheduler.LambdaLR(self.adamw, [factor] * len(param_groups))
 
     def zero_grad(self) -> None:
         self.adamw.zero_grad(set_to_none=True)
@@ -196,10 +207,12 @@ class DistillCfg(NamedTuple):
     distill_only: bool = False
 
 
-def distill_loss(distill: DistillCfg, pts3d: Tensor, batch, global_step: int) -> Tensor:
+def distill_loss(distill: DistillCfg, pts3d: Tensor, batch, global_step: int, data=None) -> Tensor:
     """Regr3D of the encoder's (b, v, h, w, 3) points against the teacher's
     on the first two context views (model_wrapper_style.py:157-171,
-    :234-242). The teacher runs without gradients on its f32 weights."""
+    :234-242). The teacher runs without gradients on its f32 weights. With
+    `data` the batch is this rank's rows of the global batch, whose valid
+    points the mean is over (regr3d_loss)."""
     from ..losses.regr3d import regr3d_loss
     from ..models.styl3r import normalize_images
 
@@ -208,7 +221,7 @@ def distill_loss(distill: DistillCfg, pts3d: Tensor, batch, global_step: int) ->
     raw = regr3d_loss(
         pseudo["pts3d_1"], pseudo["pts3d_2"], pts3d[:, 0], pts3d[:, 1],
         conf1=pseudo["conf_1"], conf2=pseudo["conf_2"], conf_threshold=distill.conf_threshold,
-        normalize=False,
+        normalize=False, data=data,
     )
     if distill.distill_only:
         # Stage 0 adds the term unweighted and ungated.
@@ -231,6 +244,8 @@ def make_train_step(
     identity_branch: bool = False,
     distill: Optional[DistillCfg] = None,
     portrait: bool = False,
+    data=None,
+    reduce_clock=None,
     **render_kwargs,
 ):
     """The train step: `step(state, batch, generator) -> metrics`, which
@@ -249,7 +264,16 @@ def make_train_step(
     With `distill`, the Regr3D term (distill_loss) is added to the loss and
     logged as `distill`; with `distill.distill_only` the step runs the
     encoder alone, renders nothing, and its metrics are {distill, loss,
-    grad_norm}."""
+    grad_norm}.
+
+    With `data` (a parallel/mesh.py DataGroup) the batch is this rank's rows
+    of a global batch (shard_batch) and the step is the global batch's: the
+    model's dropout draws the global masks (models/dpt.py::shard_dropout_,
+    which the caller applies), Regr3D divides by the global valid count, the
+    gradients are averaged over the ranks before the clip (so `grad_norm` is
+    the global norm and every rank updates alike), and the metrics are
+    reduced over the ranks (reduce_metrics), with `allreduce_bytes` added.
+    `reduce_clock` (start/stop) times the gradients' all-reduce."""
     if loss_fn is None:
 
         def loss_fn(output, batch, gaussians, global_step=0, identity_output=None):
@@ -266,7 +290,7 @@ def make_train_step(
             pts = model.predict_gaussians(
                 batch, state.step, portrait=portrait, generator=generator, distill_only=True
             )["pts3d"]
-            loss = distill_loss(distill, pts, batch, state.step)
+            loss = distill_loss(distill, pts, batch, state.step, data)
             return update(state, loss, {"distill": loss})
 
         rng_state = generator.get_state()
@@ -282,19 +306,26 @@ def make_train_step(
             output, batch, gaussians, global_step=state.step, identity_output=identity_output
         )
         if distill is not None:
-            term = distill_loss(distill, fwd[2]["pts3d"], batch, state.step)
+            term = distill_loss(distill, fwd[2]["pts3d"], batch, state.step, data)
             loss = loss + term
             metrics = dict(metrics, distill=term)
-        return dict(
-            update(state, loss, metrics),
-            live_pairs=output.live_pairs.max(), pair_slots=output.pair_slots.min(),
-        )
+        metrics = dict(metrics, live_pairs=output.live_pairs.max(), pair_slots=output.pair_slots.min())
+        return update(state, loss, metrics)
 
     def update(state: TrainState, loss: Tensor, metrics: Dict[str, Tensor]) -> Dict[str, Tensor]:
         optimizer.zero_grad()
         loss.backward()
+        if data is not None:
+            if reduce_clock is not None:
+                reduce_clock.start()
+            reduced = all_reduce_grads_(optimizer.params, data)
+            if reduce_clock is not None:
+                reduce_clock.stop()
         grad_norm = optimizer.step()
         state.step += 1
-        return dict({k: v.detach() for k, v in metrics.items()}, loss=loss.detach(), grad_norm=grad_norm)
+        metrics = dict({k: v.detach() for k, v in metrics.items()}, loss=loss.detach(), grad_norm=grad_norm)
+        if data is None:
+            return metrics
+        return dict(reduce_metrics(metrics, data), allreduce_bytes=reduced)
 
     return train_step

@@ -2,7 +2,10 @@
 reference's Lightning runtime, `src/main_style.py` + `ModelWrapperStyle`).
 
 Builds the model, datasets and losses from a RootCfg, runs the train step
-on one device, logs scalar metrics, validates now and then (PSNR/SSIM, the
+on one device or, under torchrun, data-parallel over every rank's device
+(each rank streams its own shard of the chunks and takes
+`train.batch_size` / W examples a step; parallel/mesh.py), logs scalar
+metrics, validates now and then (PSNR/SSIM, the
 comparison gallery, a trajectory strip, orthographic projections, camera
 plots, a wobble video) and writes torch checkpoints: the model's state
 dict, the optimizer's and the step. Several datasets interleave round-robin
@@ -11,8 +14,9 @@ dict, the optimizer's and the step. Several datasets interleave round-robin
 A resumed run continues the uninterrupted one exactly: each step's dropout
 generator is derived from (train.seed + 1, step), so the checkpoint holds no
 generator state, and the checkpoint holds the data stream's position after
-the last trained batch (a few numbers per dataset), from which a fit on the
-trainer's own stream continues without decoding what was trained on.
+the last trained batch (a few numbers per dataset, for each rank), from
+which a fit on the trainer's own stream continues without decoding what was
+trained on. Rank 0 alone logs, validates and writes checkpoints.
 """
 
 from __future__ import annotations
@@ -25,12 +29,14 @@ from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from ..data import DatasetConfig, RE10kStyleDataset, make_view_sampler
 from ..data.dataset import batch_iterator
 from ..eval.metrics import compute_psnr, compute_ssim
 from ..models.decoder import render_gaussians, render_orthographic
+from ..models.dpt import shard_dropout_
 from ..models.styl3r import Batch, Styl3rModel, batch_to
 from ..utils.checkpoint import (
     load_checkpoint,
@@ -39,6 +45,7 @@ from ..utils.checkpoint import (
     model_state_dict,
     reject_directory,
 )
+from ..parallel.mesh import broadcast_params_, data_group, gather_objects, shard_batch
 from ..utils.config import RootCfg
 from ..utils.convert import init_like_flax_
 from .losses import LossBundle
@@ -102,6 +109,22 @@ class WandbLogger(LocalLogger):
         super().log_video(step, name, frames, fps=fps)
         arr = (np.clip(np.asarray(frames), 0, 1) * 255).astype(np.uint8)
         self._wandb.log({name: self._wandb.Video(arr.transpose(0, 3, 1, 2), fps=fps)}, step=step)
+
+
+class NullLogger:
+    """The logger of ranks other than 0: logs nothing."""
+
+    def log_scalars(self, step: int, metrics: Dict[str, float]):
+        pass
+
+    def log_image(self, step: int, name: str, image: np.ndarray):
+        pass
+
+    def log_video(self, step: int, name: str, frames: np.ndarray, fps: int = 10):
+        pass
+
+    def close(self):
+        pass
 
 
 def make_logger(output_dir: Path, use_wandb: bool = False, **kwargs) -> LocalLogger:
@@ -284,12 +307,15 @@ class Trainer:
     tests pass a tiny one); `device` places the one it builds. `teacher`
     replaces the full-width distillation teacher's architecture (a
     Dust3RTeacher): its weights are loaded or drawn as the full-width one's
-    would be."""
+    would be. When torch.distributed is initialized the trainer is one rank
+    of a data-parallel run over the default group."""
 
     def __init__(
         self, cfg: RootCfg, model: Optional[Styl3rModel] = None, device=None, teacher: Optional[nn.Module] = None
     ):
         self.cfg = cfg
+        self.data = data_group()
+        self.rank, self.world = (self.data.rank, self.data.world) if self.data else (0, 1)
         self.model = model or Styl3rModel(
             sh_degree=cfg.model.encoder.sh_degree,
             backbone_dtype=torch.bfloat16 if cfg.model.encoder.backbone_dtype == "bfloat16" else torch.float32,
@@ -307,14 +333,20 @@ class Trainer:
         self.logger = make_logger(
             self.output_dir, use_wandb=use_wandb,
             **(dict(project=wandb_cfg.project, name=wandb_cfg.name) if use_wandb else {}),
-        )
+        ) if self.rank == 0 else NullLogger()
         self.optimizer = None
         self._render_kwargs: Optional[Dict[str, Any]] = None
         # The data stream's position after the last trained batch
         # (endless_batches); None for batches handed to fit.
         self._data_position: Optional[Dict[str, Any]] = None
+        # The number of ranks whose positions a restored checkpoint held.
+        self._restored_ranks: Optional[int] = None
         # validate's 2-D AdaIN baseline, built at its first use.
         self._adain = None
+
+    def _print(self, *args, **kwargs):
+        if self.rank == 0:
+            print(*args, **kwargs)
 
     def _build_loss_bundle(self, cfg: RootCfg) -> LossBundle:
         """The configured losses, with the perceptual nets' weights when
@@ -334,7 +366,7 @@ class Trainer:
                 if missing:
                     raise ValueError(f"{cfg.losses.vgg19_weights} lacks VGG19 weights {missing[:3]}")
             else:
-                print(
+                self._print(
                     "WARNING: style/identity loss configured without losses.vgg19_weights — using a "
                     "RANDOMLY INITIALIZED VGG19 (not the reference loss)."
                 )
@@ -348,7 +380,7 @@ class Trainer:
                     load_torch_state_dict(cfg.losses.lpips_vgg16_weights),
                 ))
             else:
-                print(
+                self._print(
                     "WARNING: lpips loss configured without losses.lpips_weights + "
                     "losses.lpips_vgg16_weights — using a RANDOMLY INITIALIZED LPIPS net (not the "
                     "reference loss)."
@@ -385,7 +417,7 @@ class Trainer:
         if cfg.train.distiller:
             teacher.load_state_dict(convert_dust3r_checkpoint(load_torch_state_dict(cfg.train.distiller)))
         else:
-            print(
+            self._print(
                 "WARNING: distillation enabled without train.distiller weights — teacher will be RANDOMLY "
                 "INITIALIZED (pseudo-GT is noise)."
             )
@@ -401,22 +433,29 @@ class Trainer:
     def save_checkpoint(self, state: TrainState, path: Optional[Path] = None) -> Path:
         """One torch file: the model's state dict, the optimizer's (moments
         of the trained parameters, the schedule's position), the step and the
-        data stream's position. Written to a temporary name and renamed, so a
-        cut run leaves no torn file; then the periodic checkpoints are
-        pruned. Logs the seconds it took and the file's bytes."""
+        data stream's position, a list of every rank's. Written by rank 0 to
+        a temporary name and renamed, so a cut run leaves no torn file; then
+        the periodic checkpoints are pruned. Every rank calls it: the ranks'
+        positions are gathered first, and a barrier after the prune holds
+        them until the file is written. Logs the seconds it took and the
+        file's bytes."""
         t0 = time.perf_counter()
         path = Path(path or self.output_dir / "checkpoints" / f"step_{state.step}.pt")
-        path.parent.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_name(path.name + ".tmp")
-        torch.save({
-            "model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(), "step": state.step,
-            "data": self._data_position,
-        }, tmp)
-        os.replace(tmp, path)
-        self._prune_checkpoints(path.parent)
-        self.logger.log_scalars(state.step, {
-            "checkpoint_seconds": time.perf_counter() - t0, "checkpoint_bytes": path.stat().st_size,
-        })
+        positions = gather_objects(self._data_position, self.data)
+        if self.rank == 0:
+            path.parent.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_name(path.name + ".tmp")
+            torch.save({
+                "model": self.model.state_dict(), "optimizer": self.optimizer.state_dict(), "step": state.step,
+                "data": positions,
+            }, tmp)
+            os.replace(tmp, path)
+            self._prune_checkpoints(path.parent)
+            self.logger.log_scalars(state.step, {
+                "checkpoint_seconds": time.perf_counter() - t0, "checkpoint_bytes": path.stat().st_size,
+            })
+        if self.data is not None:
+            dist.barrier()
         return path
 
     def _prune_checkpoints(self, ckpt_dir: Path):
@@ -441,9 +480,10 @@ class Trainer:
 
     def restore_state(self, path: Path, state: TrainState) -> TrainState:
         """A true resume: the model, the optimizer (which must be built, for
-        the same configuration), the step and the data stream's position,
-        from a trainer checkpoint. Logs the seconds it took and the file's
-        bytes."""
+        the same configuration), the step and this rank's data stream
+        position, from a trainer checkpoint (every rank reads it onto its
+        own device). A checkpoint written by another number of ranks gives
+        no position. Logs the seconds it took and the file's bytes."""
         reject_directory(path)
         t0 = time.perf_counter()
         ckpt = torch.load(path, map_location=self.device, weights_only=True)
@@ -452,7 +492,9 @@ class Trainer:
         self.model.load_state_dict(ckpt["model"])
         self.optimizer.load_state_dict(ckpt["optimizer"])
         state.step = int(ckpt["step"])
-        self._data_position = ckpt.get("data")
+        positions = ckpt.get("data")
+        self._restored_ranks = len(positions) if isinstance(positions, list) else None
+        self._data_position = positions[self.rank] if self._restored_ranks == self.world else None
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         self.logger.log_scalars(state.step, {
@@ -482,16 +524,27 @@ class Trainer:
         restored, and the trainer's own stream continues from the position
         the checkpoint holds.
 
+        Data-parallel (torch.distributed initialized): `train.batch_size` is
+        the global batch, which W ranks must divide; each rank streams its
+        own shard of the chunks at batch_size / W, or takes its rows of each
+        given batch; rank 0's weights (the init, a warm start or the
+        restored state) are broadcast before the first step.
+
         Logged every `train.log_every_n_steps`: the step's metrics,
         `seconds_per_step` (the host's time between logs), `step_ms` (the
         logged step on the device's clock: CUDA events on the card) and
-        `data_seconds` (the host's wait for the step's batch); after each
-        validation `validate_seconds`."""
+        `data_seconds` (the host's wait for the step's batch); data-parallel,
+        also `allreduce_ms` (the gradients' all-reduce, inside `step_ms`) and
+        `allreduce_bytes`; after each validation `validate_seconds`."""
         cfg = self.cfg
         max_steps = max_steps or cfg.optimizer.total_steps
         stylized = bool(cfg.losses.style) or cfg.losses.identity
         own_stream = batches is None
         self._data_position = None
+        if cfg.train.batch_size % self.world:
+            raise ValueError(
+                f"train.batch_size={cfg.train.batch_size} is the global batch and does not split over {self.world} ranks"
+            )
 
         if init_params is not None:
             self.model.load_state_dict(init_params)
@@ -513,16 +566,23 @@ class Trainer:
         state = TrainState()
         if cfg.checkpointing.load and cfg.checkpointing.resume:
             state = self.restore_state(cfg.checkpointing.load, state)
-            print(f"resumed full train state at step {state.step}")
+            self._print(f"resumed full train state at step {state.step}")
             if own_stream and self._data_position is None:
-                print(f"{cfg.checkpointing.load} holds no data position: the data stream starts from its beginning")
+                ranks = self._restored_ranks
+                why = (f"was written by {ranks} ranks and this run has {self.world}"
+                       if ranks not in (None, self.world) else "holds no data position")
+                self._print(f"{cfg.checkpointing.load} {why}: the data stream starts from its beginning")
+        if self.data is not None:
+            broadcast_params_(self.model)
+            shard_dropout_(self.model, self.rank, self.world)
         if own_stream:
             # The curriculum's step: the datasets take turns, one batch each.
-            b, n = cfg.train.batch_size, len(cfg.datasets)
+            b, n = cfg.train.batch_size // self.world, len(cfg.datasets)
             datasets = build_datasets(cfg, "train", cfg.train.seed, step_of=lambda built: built // b * n)
             positioned = endless_batches(datasets, b, self._data_position)
         else:
-            positioned = ((batch, None) for batch in batches)
+            positioned = ((batch if self.data is None else shard_batch(batch, self.rank, self.world), None)
+                          for batch in batches)
         self._render_kwargs = render_settings(cfg, self.device)
 
         # One step function per (h, w) bucket; portrait batches (h > w) run
@@ -530,12 +590,14 @@ class Trainer:
         step_cache: Dict[Tuple[int, int], Any] = {}
         self._step_cache = step_cache
 
+        reduce_clock = StepClock(self.device)
+
         def get_step_fn(hh: int, ww: int):
             if (hh, ww) not in step_cache:
                 step_cache[(hh, ww)] = make_train_step(
                     self.model, self.optimizer, (hh, ww), loss_fn=self.loss_bundle, stylized=stylized,
                     identity_branch=self.loss_bundle.identity, distill=self.distill, portrait=hh > ww,
-                    **self._render_kwargs,
+                    data=self.data, reduce_clock=reduce_clock, **self._render_kwargs,
                 )
             return step_cache[(hh, ww)]
 
@@ -557,16 +619,18 @@ class Trainer:
 
                 if (i + 1) % cfg.train.log_every_n_steps == 0:
                     metrics = {k: float(v) for k, v in metrics.items()}
+                    if self.data is not None:
+                        metrics["allreduce_ms"] = reduce_clock.ms()
                     dt = (time.time() - t_last) / cfg.train.log_every_n_steps
                     t_last = time.time()
                     self.logger.log_scalars(i + 1, dict(
                         metrics, seconds_per_step=dt, step_ms=clock.ms(), data_seconds=data_s,
                     ))
-                    print(f"step {i + 1}: loss={metrics['loss']:.4f} ({dt:.2f}s/step)", flush=True)
+                    self._print(f"step {i + 1}: loss={metrics['loss']:.4f} ({dt:.2f}s/step)", flush=True)
 
                 # Stage 0 renders nothing, so it is not validated.
                 stage0 = self.distill is not None and self.distill.distill_only
-                if (i + 1) % cfg.train.val_every_n_steps == 0 and not stage0:
+                if (i + 1) % cfg.train.val_every_n_steps == 0 and not stage0 and self.rank == 0:
                     t0 = time.perf_counter()
                     self.validate(state, batch, stylized=stylized)
                     self.logger.log_scalars(i + 1, {"validate_seconds": time.perf_counter() - t0})
