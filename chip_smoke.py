@@ -7,7 +7,9 @@ Phases, each of which fails the run (non-zero exit, no result line) when it
 fails:
   1. device: needs CUDA; prints the card's name and power limit;
   2. build: compiles every kernel under styl3r_tpu_torch/csrc with nvcc, all
-     at once;
+     at once, and the native host loader (styl3r_tpu_torch/native/loader.cpp,
+     g++ and libjpeg; where it cannot be built, the reason is printed and the
+     datasets decode with PIL, as the JAX package's do);
   3. distributed, first, while this process holds nothing on the card:
      multi-GPU training in child processes started with torchrun's
      environment (`chip_smoke.py --distributed-child ROLE JSON`;
@@ -33,7 +35,17 @@ fails:
      Styl3rModel.forward; the forward compositor must have been launched
      once a scene; then it is held against its plain version on the path's
      own inputs, and 10 warm forwards are timed;
-  6. inference path: the same model through the inference entry points'
+  6. posed route: the serving model's raw Gaussian channels and densities
+     for the example batch, as models/encoder.py::_adapt receives them, go
+     through posed_gaussian_adapter (each context view's own camera, the
+     pixel-centre grid, depths that are each pixel's pts3d norm: 131,072
+     Gaussians at 256^2); the target view is rendered with the serving caps
+     and its MSE backpropagated to the raw channels and depths, 2 warm-up
+     and 5 timed steps, each launching each kernel once; both kernels are
+     held against their plain versions on the route's inputs and MSE
+     cotangents, and the adapter on the card against the same call on the
+     CPU;
+  7. inference path: the same model through the inference entry points'
      flow, styl3r_tpu_torch.infer.cli.run_scene_inference, on a synthetic
      scene (2 context views, 3 targets, a style image, all 256^2): two
      predicts, 100 pose-alignment steps (each launching the forward and the
@@ -45,7 +57,7 @@ fails:
      plain versions; then two 4-view predicts + renders, and pose recovery
      on a synthetic cloud of 131,072 Gaussians (the error falls below 0.3x
      of its start; both kernels held on its first step's inputs);
-  7. evaluation entry points, at full width with random weights (f32
+  8. evaluation entry points, at full width with random weights (f32
      compute, as the JAX scripts'), on two synthetic RE10K test scenes with
      an evaluation index of 2 context views and 3 targets each:
      styl3r_tpu_torch.eval.evaluate.main with 100 pose-alignment steps a
@@ -62,19 +74,19 @@ fails:
      131,072 Gaussians at 256^2 (the rotation error falls below 0.3x of its
      start in 200 steps), and both kernels are held on its first step's
      inputs too;
-  8. training, stage 1: the full-width model with f32 master weights, bf16
+  9. training, stage 1: the full-width model with f32 master weights, bf16
      compute and scratch_init_heads; both kernels are held against their
      plain versions on the path's own inputs (the backward with MSE
      cotangents); then 2 warm and 5 timed steps of make_train_step (MSE,
      make_optimizer) on b = 2 2-view 256^2 scenes, each of which launches
      each compositor kernel once; the warm steps' gradients reach the
      geometry heads;
-  9. training, stage 2: the same model, back at its scratch-initialized
+ 10. training, stage 2: the same model, back at its scratch-initialized
      weights, and batch, make_stage2_optimizer and style 10 + identity with
      VGG19 at random weights; every step launches
      each kernel twice, leaves the frozen parameters bitwise unchanged and,
      from the second step, changes the stylizer and the appearance head;
- 10. training entry point: styl3r_tpu_torch.train.main.main on the paper's
+ 11. training entry point: styl3r_tpu_torch.train.main.main on the paper's
      stage 2 (configs/experiment/re10k_3view_style.yaml, full width, 3
      context views + 4 targets at 256^2, no pair cap) over synthetic RE10K
      chunks (360x640 noise JPEGs), 4 steps at b = 2 with a validation and a
@@ -83,10 +95,11 @@ fails:
      are checked, and the run is repeated as 2 steps plus a resume from
      their step-2 checkpoint, whose losses and last weights must match the
      uninterrupted run's. Step, validation and checkpoint times and sizes
-     are read from the run's metrics.jsonl. Both kernels are held
+     are read from the run's metrics.jsonl, and which decoder the dataset
+     took (native, or PIL with its reason). Both kernels are held
      against their plain versions on the first step's own inputs and the
      forward on the first validation's orthographic projection;
- 11. distillation: styl3r_tpu_torch.train.main.main on stage 0
+ 12. distillation: styl3r_tpu_torch.train.main.main on stage 0
      (configs/experiment/re10k_style_distill.yaml: the full-width student and
      a full-width DUSt3R/MASt3R teacher at random weights, frozen; Regr3D on
      the student's point maps, encoder-only steps, no render and no
@@ -98,7 +111,7 @@ fails:
      key). Step and teacher times (CUDA events), peak memory and checkpoint
      bytes are printed, and both kernels are held against their plain
      versions on stage 1's first step's own inputs and cotangents;
- 12. secondary modules, at full width with random weights from fixed seeds,
+ 13. secondary modules, at full width with random weights from fixed seeds,
      each held against the same module and weights on the CPU:
      get_backbone("resnet", model="resnet50") and get_backbone("dino",
      model="dino_vitb8") on 2 views at 256^2 (forward ms, median of 10,
@@ -114,11 +127,11 @@ fails:
      Gaussians (each step launches each kernel once); both kernels held
      against their plain versions on its inputs and cotangents, whose depth
      part, and the backward's depth column, must not be zero;
- 13. kernel times: each kernel's device time (torch.profiler, summed over
+ 14. kernel times: each kernel's device time (torch.profiler, summed over
      the backward's two launches a call) and launch shape (grid, block and
      registers a thread, from the profiler's trace of the same calls), call
      time and plain version's time (CUDA events), beside its bound;
- 14. reference: a tiny-width model's Gaussians on the card agree with the
+ 15. reference: a tiny-width model's Gaussians on the card agree with the
      same model's on the CPU (whose agreement with the JAX package the CPU
      tests show).
 The line before the last is a JSON object with every kernel's numbers; the
@@ -185,35 +198,44 @@ def cuda_ms(fn, reps):
     return statistics.median(times)
 
 
-def kernel_device_ms(fn, reps, kernel_names, attempts=3):
+def kernel_device_ms(fn, reps, kernel_names, attempts=5):
     """Device time of one call of `fn`, summed over the CUDA kernels it
     launches, from torch.profiler over `reps` calls: each name in
     `kernel_names` must match kernels launched once a call. Returns the sum,
     each kernel's mean time a call (the kernels' own time, without the
     host's time to call them) and each kernel's launch shape in the same
     calls (launch_shapes). The profiler on the card now and then records
-    fewer launches than were made; such a window is measured again, up to
-    `attempts` times."""
+    fewer launches than were made, in some windows none; such a window is
+    measured again, up to `attempts` times, and if none is whole, each
+    kernel's mean is taken over the launches the profiler saw in the window
+    where the fewest were lost (every kernel seen at least once)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    best = None
     for _ in range(attempts):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        each, lost = {}, None
+        counts, each = {}, {}
         for name in kernel_names:
             hits = [e for e in prof.key_averages() if name in e.key]
-            count = sum(e.count for e in hits)
-            if count != reps:
-                lost = f"profiler saw {count} launches of {name}, expected {reps}"
-                break
-            each[name] = sum(e.self_device_time_total for e in hits) / count / 1e3
-        if lost is None:
+            counts[name] = sum(e.count for e in hits)
+            if counts[name]:
+                each[name] = sum(e.self_device_time_total for e in hits) / counts[name] / 1e3
+        if any(c > reps for c in counts.values()):
+            raise AssertionError(f"profiler saw {counts} launches in {reps} calls: a name matches other kernels")
+        if all(c == reps for c in counts.values()):
             return sum(each.values()), each, launch_shapes(prof, kernel_names)
-        log(f"{lost}; measuring again")
-    raise AssertionError(lost)
+        log(f"profiler saw {counts} launches, expected {reps} of each; measuring again")
+        if min(counts.values()) > 0 and (best is None or min(counts.values()) > min(best[0].values())):
+            best = (counts, each, launch_shapes(prof, kernel_names))
+    if best is None:
+        raise AssertionError(f"profiler saw no launch of a kernel of {kernel_names} in {attempts} windows")
+    counts, each, shapes = best
+    log(f"profiler: no whole window in {attempts}; each kernel's mean over the {counts} launches it saw")
+    return sum(each.values()), each, shapes
 
 
 def launch_shapes(prof, kernel_names):
@@ -1334,7 +1356,16 @@ class FitProbe:
 
     def __init__(self):
         self.train_fwd, self.bwd, self.ortho_fwd = [], None, None
+        self.datasets = []
         self._in_ortho = False
+
+    def decoders(self):
+        """Which decoder the run's datasets took, by the examples each
+        gave: native, or PIL with the first fallback's reason."""
+        native = sum(d.decoded["native"] for d in self.datasets)
+        pil = sum(d.decoded["pil"] for d in self.datasets)
+        reasons = sorted({d.fallback_reason for d in self.datasets if d.fallback_reason})
+        return {"native": native, "pil": pil, "pil_reasons": reasons}
 
     @contextlib.contextmanager
     def attached(self):
@@ -1342,8 +1373,14 @@ class FitProbe:
         from styl3r_tpu_torch.train import trainer as trainer_mod
 
         probe = self
-        saved = (trainer_mod.render_orthographic, composite.composite_tiles, composite.composite_backward)
-        render_ortho, fwd, bwd = saved
+        saved = (trainer_mod.render_orthographic, composite.composite_tiles, composite.composite_backward,
+                 trainer_mod.build_datasets)
+        render_ortho, fwd, bwd, build_datasets = saved
+
+        def recorded_datasets(*args, **kwargs):
+            datasets = build_datasets(*args, **kwargs)
+            probe.datasets.extend(datasets)
+            return datasets
 
         def tagged_ortho(*args, **kwargs):
             probe._in_ortho = True
@@ -1363,12 +1400,13 @@ class FitProbe:
             probe.bwd = probe.bwd or (args, kwargs["max_per_tile"])
             return bwd(*args, **kwargs)
 
-        trainer_mod.render_orthographic = tagged_ortho
+        trainer_mod.render_orthographic, trainer_mod.build_datasets = tagged_ortho, recorded_datasets
         composite.composite_tiles, composite.composite_backward = record_fwd, record_bwd
         try:
             yield self
         finally:
-            trainer_mod.render_orthographic, composite.composite_tiles, composite.composite_backward = saved
+            (trainer_mod.render_orthographic, composite.composite_tiles, composite.composite_backward,
+             trainer_mod.build_datasets) = saved
 
 
 def compositor_inputs(args):
@@ -1510,6 +1548,12 @@ def fit_phase(card, batch_size=2, steps=4):
             f"[{card}]")
         log(f"fit: checkpoint {ckpt_bytes} bytes ({ckpt_bytes / 2**30:.2f} GiB), saved in "
             f"{', '.join(f'{t:.2f}' for t in save_s)} s [{card}]")
+        decoders = probe.decoders()
+        if not decoders["native"] + decoders["pil"]:
+            raise AssertionError("fit: its datasets decoded no example")
+        log(f"fit: the dataset decoded {decoders['native']} examples natively (styl3r_tpu_torch/native) and "
+            f"{decoders['pil']} with PIL" + (f" ({'; '.join(decoders['pil_reasons'])})" if decoders["pil_reasons"]
+                                             else "") + f"; data wait above [{card}]")
 
         # -- the kernels on the fit's own inputs --------------------------------
         bwd_args, bwd_max = probe.bwd
@@ -1580,7 +1624,7 @@ def fit_phase(card, batch_size=2, steps=4):
         checkpoint_bytes=ckpt_bytes, save_s=save_s, load_s=load_s,
         losses=losses, resume_losses=[r["loss"] for r in part_rec], resume_rel_err=resume_err,
         resume_param_err=param_err, resume_first_wait_ms=1e3 * first_wait,
-        live_pairs=live, pair_slots=slots, val_psnr=[r["val_psnr"] for r in val_rec],
+        live_pairs=live, pair_slots=slots, val_psnr=[r["val_psnr"] for r in val_rec], decoders=decoders,
         fwd=fwd_res, bwd=bwd_res, ortho_fwd=ortho_res,
     )
 
@@ -2080,6 +2124,146 @@ def secondary_phase(card, device="cuda", hw=256, resnet="resnet50", dino="dino_v
         f"depth gradients, {bwd['pairs_with_grad']} pairs with a gradient of {bwd['walked']} walked; "
         f"{windows_line(bwd)}")
     del cloud, leaves, grads, out, inputs, vgg19, gaussians
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(res, fwd=fwd, bwd=bwd)
+
+
+# The posed adapter on the card against the same call on the CPU, each
+# output over its largest magnitude: f32 elementwise math and a 2x2 inverse,
+# rounded otherwise by the card's exp and rsqrt (tests/test_torch_cuda.py).
+POSED_TOL = 1e-5
+# The posed route's context cameras (c2w): view 0 at the target's camera,
+# view 1 one baseline of 0.1 along x from it.
+POSED_BASELINE = 0.1
+
+
+def adapt_inputs(model, batch):
+    """The raw (b, v, h, w, 1 + channels) Gaussian channels and (b, v, h,
+    w, 3) points that models/encoder.py::_adapt receives in one predict of
+    `model` on `batch`, as f32 tensors outside any graph."""
+    import torch
+
+    from styl3r_tpu_torch.models import encoder as encoder_mod
+
+    seen = []
+    adapt = encoder_mod._adapt
+
+    def record(raw, pts, *args, **kwargs):
+        seen.append((raw.detach().float().clone(), pts.detach().float().clone()))
+        return adapt(raw, pts, *args, **kwargs)
+
+    encoder_mod._adapt = record
+    try:
+        with torch.no_grad():
+            model.predict_gaussians(batch)
+    finally:
+        encoder_mod._adapt = adapt
+    if len(seen) != 1:
+        raise AssertionError(f"posed route: _adapt was called {len(seen)} times in one predict")
+    return seen[0]
+
+
+def posed_phase(model, card, hw, render_kwargs, seed=0, reps=5, warm=2):
+    """The posed adapter's route at full width: the serving model's raw
+    Gaussian channels and densities for the example batch (2 context views
+    + a style image at hw, 1 target, from `seed`), as models/encoder.py::
+    _adapt receives them, go through posed_gaussian_adapter with each view's
+    own context camera (POSED_BASELINE), the pixel-centre grid and depths
+    that are each pixel's pts3d norm, its distance along its own unit ray:
+    one Gaussian a pixel. The target view is rendered with `render_kwargs`
+    and the MSE against the target image backpropagated to the raw channels
+    and the depths; each step launches each compositor kernel once (`warm`
+    warm-up and `reps` timed steps, median, CUDA events). Both kernels are
+    held against their plain versions on the route's inputs and MSE
+    cotangents, and the adapter on the card against the same call on the
+    CPU (POSED_TOL)."""
+    import torch
+
+    from styl3r_tpu_torch.geometry.gaussians import Gaussians
+    from styl3r_tpu_torch.geometry.projection import sample_image_grid
+    from styl3r_tpu_torch.models.adapter import map_pdf_to_opacity, posed_gaussian_adapter
+    from styl3r_tpu_torch.models.decoder import render_gaussians
+    from styl3r_tpu_torch.ops.rasterizer import composite
+
+    dev = next(model.parameters()).device
+    enc = model.encoder
+    batch = example_batch(seed, dev, hw=hw[0], targets=True)
+    raw, pts = adapt_inputs(model, batch)
+    b, v, h, w, c = raw.shape
+    n = h * w
+    ext = torch.eye(4, device=dev).repeat(b, v, 1, 1)
+    ext[:, :, 0, 3] = POSED_BASELINE * torch.arange(v, device=dev)
+    args = dict(
+        extrinsics=ext[:, :, None], intrinsics=batch.context_intrinsics[:, :, None],
+        coordinates=sample_image_grid((h, w))[0].reshape(1, 1, n, 2).to(dev),
+        depths=torch.linalg.norm(pts, dim=-1).reshape(b, v, n), raw=raw.reshape(b, v, n, c),
+    )
+    for k in ("depths", "raw"):
+        args[k].requires_grad_()
+
+    def adapter(t):
+        opacities = map_pdf_to_opacity(torch.sigmoid(t["raw"][..., 0]), 0, enc.opacity_initial, enc.opacity_final,
+                                       enc.opacity_warm_up)
+        g = posed_gaussian_adapter(t["extrinsics"], t["intrinsics"], t["coordinates"], t["depths"], opacities,
+                                   t["raw"][..., 1:], (h, w), enc.sh_degree)
+        return Gaussians(*(x.reshape(b, v * n, *x.shape[3:]) for x in g))
+
+    def step():
+        out = render_gaussians(adapter(args), batch.target_extrinsics, batch.target_intrinsics, batch.target_near,
+                               batch.target_far, hw, **render_kwargs)
+        loss = ((out.color - batch.target_images) ** 2).mean()
+        return loss, torch.autograd.grad(loss, (args["raw"], args["depths"])), out
+
+    composite.launches = composite.backward_launches = 0
+    with torch.enable_grad():
+        for _ in range(warm):
+            loss, grads, out = step()
+        step_ms = cuda_ms(step, reps)
+        adapter_ms = cuda_ms(lambda: adapter(args), reps)
+    launches = {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}
+    if (launches["composite_fwd"], launches["composite_bwd"]) != (warm + reps, warm + reps):
+        raise AssertionError(f"posed route: launches {launches}, expected {warm + reps} of each")
+    loss = float(loss.detach())
+    if not math.isfinite(loss) or not all(bool(torch.isfinite(x).all()) and bool((x != 0).any()) for x in grads):
+        raise AssertionError("posed route: non-finite loss or a zero or non-finite gradient")
+    # The serving cap of 2 pair slots a Gaussian may truncate here (its
+    # telemetry: lossless iff live <= slots); the kernels are held on the
+    # capped inputs the route renders.
+    live, slots = int(out.live_pairs.max()), int(out.pair_slots.min())
+    if not live > 0:
+        raise AssertionError(f"posed route: live pairs {live}")
+
+    with torch.no_grad():
+        gaussians = adapter(args)
+        cpu = adapter({k: x.detach().cpu() for k, x in args.items()})
+        held = {}
+        for name in Gaussians._fields:
+            a, ref = getattr(gaussians, name).cpu(), getattr(cpu, name)
+            scale = float(ref.abs().max())
+            held[name] = float((a - ref).abs().max()) / scale
+            if not (bool(torch.isfinite(a).all()) and held[name] <= POSED_TOL):
+                raise AssertionError(f"posed route: adapter output {name} on the card is {held[name]} of its largest "
+                                     f"magnitude from the CPU's (bound {POSED_TOL})")
+        inputs = main_path_inputs(gaussians, *batch[2:6], hw, render_kwargs)
+        fwd = check_composite(inputs, render_kwargs["max_per_tile"])
+        bwd = check_composite_bwd(inputs, render_kwargs["max_per_tile"],
+                                  *mse_cotangents(inputs, render_kwargs["max_per_tile"], batch.target_images))
+    res = dict(gaussians=b * v * n, live_pairs=live, pair_slots=slots, step_ms=step_ms, adapter_ms=adapter_ms,
+               loss=loss, launches=launches, adapter_rel_err=max(held.values()))
+    log(f"posed route: {b * v * n} Gaussians from the full-width model's raw channels and pts3d norms through "
+        f"posed_gaussian_adapter (2 context cameras {POSED_BASELINE} apart), the target at {hw[0]}x{hw[1]} "
+        f"({live} live pairs, {slots} pair slots), MSE backpropagated to the raw channels and depths: {step_ms:.3f} ms a "
+        f"step (median of {reps} after {warm} warm-up steps, CUDA events), the adapter {adapter_ms:.3f} ms; launches "
+        f"fwd {launches['composite_fwd']} bwd {launches['composite_bwd']}; gradients finite [{card}]")
+    log(f"posed route: the adapter on the card within {res['adapter_rel_err']:.3g} of each output's largest magnitude "
+        f"of the CPU's (bound {POSED_TOL}; " + ", ".join(f"{k} {e:.3g}" for k, e in held.items()) + ")")
+    log(f"kernel composite_fwd, the posed route's inputs: agrees with the plain version, max err "
+        f"{fwd['max_abs_err']:.3g}; {fwd_windows_line(fwd)}")
+    log(f"kernel composite_bwd, the posed route's inputs and MSE cotangents: agrees with the plain version, max err "
+        f"{bwd['max_abs_err']:.3g} ({bwd['max_rel_err']:.3g} of its column's largest gradient), "
+        f"{bwd['pairs_with_grad']} pairs with a gradient of {bwd['walked']} walked; {windows_line(bwd)}")
+    del args, grads, out, gaussians, cpu, inputs, raw, pts
     gc.collect()
     torch.cuda.empty_cache()
     return dict(res, fwd=fwd, bwd=bwd)
@@ -2668,6 +2852,7 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, ROOT)
+    from styl3r_tpu_torch import native
     from styl3r_tpu_torch.models.styl3r import Styl3rModel
     from styl3r_tpu_torch.ops.rasterizer import composite
     from styl3r_tpu_torch.utils import cuda_build, flops
@@ -2689,6 +2874,13 @@ def main():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"  {name}: {line.strip()}")
+    t0 = time.perf_counter()
+    if native.native_available():
+        log(f"build: the native host loader ({native.library_path().name}, g++ and libjpeg) in "
+            f"{time.perf_counter() - t0:.1f} s")
+    else:
+        log(f"build: the native host loader is unavailable ({native.unavailable_reason()}): the datasets decode "
+            f"with PIL")
 
     # -- multi-GPU training first, while this process holds nothing on the
     # card: data parallelism over NCCL and gloo, tensor parallelism, each in
@@ -2780,6 +2972,11 @@ def main():
         f"{statistics.median(enc_ms):.2f} ms, render {statistics.median(ren_ms):.2f} ms; median of 10), "
         f"{util['tflops']:.1f} TFLOP/s = MFU {util['mfu']:.4f} of 989 TFLOP/s bf16 [{card}]")
     del gaussians, out, g
+
+    # -- the posed adapter's route: the model's raw channels through
+    # posed_gaussian_adapter, rendered and differentiated ------------------
+    posed = posed_phase(model, card, hw, render_kwargs)
+    launches["posed"] = posed.pop("launches")
 
     # -- inference path: the entry points' flow, with pose alignment --------
     infer = inference_phase(model, card)
@@ -2890,7 +3087,8 @@ def main():
                       ("eval_pose's refinement, first step", evaluation["fwd"]),
                       ("the refinement recovery's first step", evaluation["recovery_fwd"]),
                       ("stage 1 + distill's first step", distill["fwd"]),
-                      ("the adaattn + depth route's inputs", secondary["fwd"])):
+                      ("the adaattn + depth route's inputs", secondary["fwd"]),
+                      ("the posed route's inputs", posed["fwd"])):
         fwd_time_line(what, composite_device_ms(res), card)
     for what, res in (("dense cloud", bwd_dense), ("training path's own inputs", bwd_main),
                       ("alignment's own inputs", infer["bwd"]), ("the fit's first step's inputs", fit["bwd"]),
@@ -2898,7 +3096,8 @@ def main():
                       ("eval_pose's refinement, first step", evaluation["bwd"]),
                       ("the refinement recovery's first step", evaluation["recovery_bwd"]),
                       ("stage 1 + distill's first step", distill["bwd"]),
-                      ("the adaattn + depth route's inputs and cotangents", secondary["bwd"])):
+                      ("the adaattn + depth route's inputs and cotangents", secondary["bwd"]),
+                      ("the posed route's inputs and MSE cotangents", posed["bwd"])):
         bwd_time_line(what, composite_bwd_device_ms(res), card)
     # The 2-rank route's kernels were timed in its rank 0's process.
     fwd_time_line("rank 0's render of the 2-rank gloo step", distributed["fwd"], card)
@@ -2923,7 +3122,7 @@ def main():
                 "max_abs_err": res["max_abs_err"], "max_rel_err": res["max_rel_err"]}
 
     all_bwd = (bwd_dense, bwd_main, infer["bwd"], fit["bwd"], recovery_bwd, evaluation["bwd"],
-               evaluation["recovery_bwd"], distill["bwd"], secondary["bwd"], distributed["bwd"])
+               evaluation["recovery_bwd"], distill["bwd"], secondary["bwd"], distributed["bwd"], posed["bwd"])
 
     kernels = [
         {
@@ -2937,7 +3136,7 @@ def main():
                                                                infer["video_fwd"], fit["fwd"], fit["ortho_fwd"],
                                                                recovery_fwd, evaluation["fwd"],
                                                                evaluation["recovery_fwd"], distill["fwd"],
-                                                               secondary["fwd"], distributed["fwd"])),
+                                                               secondary["fwd"], distributed["fwd"], posed["fwd"])),
             **{k: res_main[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
             "windows": res_main["windows"],
@@ -2955,6 +3154,7 @@ def main():
             "distill_inputs": {**fwd_numbers(distill["fwd"]), "max_abs_err": distill["fwd"]["max_abs_err"]},
             "adaattn_depth_inputs": {**fwd_numbers(secondary["fwd"]), "max_abs_err": secondary["fwd"]["max_abs_err"]},
             "dist_gloo_inputs": {**fwd_numbers(distributed["fwd"]), "max_abs_err": distributed["fwd"]["max_abs_err"]},
+            "posed_inputs": {**fwd_numbers(posed["fwd"]), "max_abs_err": posed["fwd"]["max_abs_err"]},
         },
         {
             "name": "composite_bwd",
@@ -2981,6 +3181,7 @@ def main():
             "adaattn_depth_inputs": {**bwd_numbers(secondary["bwd"]),
                                      "nonzero_by_column": secondary["bwd"]["nonzero_by_column"]},
             "dist_gloo_inputs": bwd_numbers(distributed["bwd"]),
+            "posed_inputs": bwd_numbers(posed["bwd"]),
         },
     ]
     training = {f"stage{i}": {k: st[k] for k in ("ms", "examples_per_s", "peak_gib", "live_pairs")}
@@ -2998,9 +3199,11 @@ def main():
     distill_summary = {k: v for k, v in distill.items() if k not in ("fwd", "bwd")}
     secondary_summary = {k: v for k, v in secondary.items() if k not in ("fwd", "bwd")}
     distributed_summary = {k: v for k, v in distributed.items() if k not in ("fwd", "bwd")}
+    posed_summary = {k: v for k, v in posed.items() if k not in ("fwd", "bwd")}
     print(json.dumps({"kernels": kernels, "training": training, "inference": inference,
                       "evaluation": evaluation_summary, "fit": fit_summary, "distill": distill_summary,
-                      "secondary": secondary_summary, "distributed": distributed_summary, "card": card}), flush=True)
+                      "secondary": secondary_summary, "distributed": distributed_summary, "posed": posed_summary,
+                      "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
     }}), flush=True)

@@ -207,6 +207,44 @@ def auto_orient_and_center_poses(
     return oriented.astype(np.float32), transform.astype(np.float32)
 
 
+def undistort_image_simple_radial(image: np.ndarray, cam: ColmapCamera) -> np.ndarray:
+    """An (h, w, c) image undistorted for the SIMPLE_RADIAL and RADIAL
+    models: each output pixel samples the input bilinearly at its
+    forward-distorted position, xd = xn (1 + k1 r^2 [+ k2 r^4]). Pinhole
+    models pass through; other models raise (the reference uses cv2)."""
+    if cam.model in ("SIMPLE_PINHOLE", "PINHOLE"):
+        return image
+    if cam.model == "SIMPLE_RADIAL":
+        f, cx, cy, k1 = cam.params
+        ks = [k1]
+    elif cam.model == "RADIAL":
+        f, cx, cy, k1, k2 = cam.params
+        ks = [k1, k2]
+    else:
+        raise ValueError(f"undistortion for {cam.model} not implemented")
+    h, w = image.shape[:2]
+    ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+    xn = (xs - cx) / f
+    yn = (ys - cy) / f
+    r2 = xn * xn + yn * yn
+    factor = 1.0 + sum(k * r2 ** (i + 1) for i, k in enumerate(ks))
+    sample_x = np.clip(xn * factor * f + cx, 0, w - 1)
+    sample_y = np.clip(yn * factor * f + cy, 0, h - 1)
+    x0 = np.floor(sample_x).astype(int)
+    y0 = np.floor(sample_y).astype(int)
+    x1 = np.minimum(x0 + 1, w - 1)
+    y1 = np.minimum(y0 + 1, h - 1)
+    wx = sample_x - x0
+    wy = sample_y - y0
+    out = (
+        image[y0, x0] * ((1 - wx) * (1 - wy))[..., None]
+        + image[y0, x1] * (wx * (1 - wy))[..., None]
+        + image[y1, x0] * ((1 - wx) * wy)[..., None]
+        + image[y1, x1] * (wx * wy)[..., None]
+    )
+    return out.astype(image.dtype)
+
+
 def read_llff_poses(path: Path) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """LLFF poses_bounds.npy -> (c2w OpenCV (n, 4, 4), hwf (n, 3), bounds
     (n, 2)). The stored 3x5 blocks are [down, right, backwards | t | hwf]:

@@ -6,22 +6,27 @@ filter (FOV <= max_fov, baseline in range, frame shape), scale the world to
 baseline 1, express poses relative to context camera 0, attach a style
 image, flip-augment, and rescale + center-crop to the input shape.
 
-Host-side numpy and PIL: the train step takes collated Batches, which
+Host-side numpy: the train step takes collated Batches, which
 `models/styl3r.py::batch_to` moves to the device. A producer thread overlaps
-decoding with the device's work (PIL releases the GIL while it decodes).
+decoding with the device's work (the decoders release the GIL).
 The stream's position between two examples is a small dict
 (`RE10kStyleDataset.state_dict`: the generator's state, the epoch's chunk
 order and the place in it), so a resumed run continues where the
 interrupted one stopped without decoding what it already trained on.
-Frames are decoded with PIL only, so frames of another shape than
-`original_image_shape` are skipped (`skip_bad_shape`), where the JAX package's
-native decoder would resize them.
+Frames are decoded as the JAX dataset decodes them: first by the native
+library (`styl3r_tpu_torch/native`: threaded libjpeg, and frames of another
+shape than `original_image_shape` Lanczos-resized to it), and with PIL only
+where that library cannot be built or a frame fails to decode; PIL's frames
+of another shape are skipped (`skip_bad_shape`). The first fallback of a
+dataset prints its reason to stderr, and `decoded` counts the examples
+each decoder decoded.
 """
 
 from __future__ import annotations
 
 import json
 import queue
+import sys
 import threading
 from dataclasses import dataclass
 from pathlib import Path
@@ -30,6 +35,7 @@ from typing import Any, Callable, Dict, Iterator, List, Optional, Sequence
 import numpy as np
 import torch
 
+from .. import native
 from ..geometry.projection import get_fov
 from ..models.styl3r import Batch
 from .chunks import convert_poses_re10k, decode_jpeg, load_chunk, list_chunks
@@ -86,6 +92,9 @@ class RE10kStyleDataset:
         self.view_sampler = view_sampler
         self.step_of = step_of
         self.n_built = 0  # examples yielded, over all epochs
+        # Examples each decoder decoded, and why the first PIL fallback was taken.
+        self.decoded = {"native": 0, "pil": 0}
+        self.fallback_reason: Optional[str] = None
         self._cursor: Optional[Dict[str, Any]] = None  # the epoch in progress
         self._restored: Optional[Dict[str, Any]] = None  # where the next __iter__ starts
 
@@ -173,6 +182,29 @@ class RE10kStyleDataset:
         finally:
             self._cursor = None
 
+    def _decode(self, jpegs: List[bytes], n_context: int, expect: tuple) -> Optional[tuple]:
+        """(context, target) frames, each (n, h, w, 3) float32 in [0, 1]:
+        natively, resized to `expect` where they differ, else with PIL;
+        None where PIL fails or, with skip_bad_shape, a PIL frame has
+        another shape."""
+        images = native.decode_jpeg_batch(jpegs, expect)
+        if images is not None:
+            self.decoded["native"] += 1
+            return images[:n_context], images[n_context:]
+        if self.fallback_reason is None:
+            self.fallback_reason = native.unavailable_reason() or "a frame failed to decode natively"
+            print(f"RE10kStyleDataset: decoding with PIL: {self.fallback_reason}", file=sys.stderr, flush=True)
+        try:
+            frames = [decode_jpeg(j) for j in jpegs]
+        except OSError:
+            return None
+        # Each frame is checked before stacking: the JAX dataset's np.stack
+        # raises where the frames of one example differ in shape.
+        if self.cfg.skip_bad_shape and any(f.shape[:2] != expect for f in frames):
+            return None
+        self.decoded["pil"] += 1
+        return np.stack(frames[:n_context]), np.stack(frames[n_context:])
+
     def _build_example(self, raw: Dict) -> Optional[Example]:
         extrinsics, intrinsics = convert_poses_re10k(raw["cameras"])
         scene = raw["key"]
@@ -186,13 +218,13 @@ class RE10kStyleDataset:
             return None
 
         try:
-            ctx_imgs = np.stack([decode_jpeg(raw["images"][i]) for i in sampled.context])
-            tgt_imgs = np.stack([decode_jpeg(raw["images"][i]) for i in sampled.target])
-        except (IndexError, OSError):
+            jpegs = [raw["images"][i] for i in (*sampled.context, *sampled.target)]
+        except IndexError:
             return None
-        expect = tuple(self.cfg.original_image_shape)
-        if self.cfg.skip_bad_shape and (ctx_imgs.shape[1:3] != expect or tgt_imgs.shape[1:3] != expect):
+        images = self._decode(jpegs, len(sampled.context), tuple(self.cfg.original_image_shape))
+        if images is None:
             return None
+        ctx_imgs, tgt_imgs = images
 
         scale = 1.0
         if self.cfg.make_baseline_1:

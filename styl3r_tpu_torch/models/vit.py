@@ -165,3 +165,16 @@ class PatchEmbed(nn.Module):
         tokens = x.flatten(2).transpose(1, 2)
         pos = token_grid_positions(h // p, w // p, images.device)
         return tokens, pos[None].expand(b, -1, -1)
+
+
+def random_token_mask(
+    generator: torch.Generator, batch: int, num_tokens: int, mask_ratio: float, device=None
+) -> Tensor:
+    """CroCo's RandomMask (croco/masking.py:12-25): a bool (batch,
+    num_tokens) mask with round(num_tokens * mask_ratio) True entries a row,
+    the tokens of the lowest ranks of a uniform draw from `generator` (which
+    lies on `device`). Kept for pretraining parity; no model here masks."""
+    num_masked = int(round(num_tokens * mask_ratio))
+    noise = torch.rand(batch, num_tokens, generator=generator, device=device)
+    ranks = noise.argsort(dim=1).argsort(dim=1)
+    return ranks < num_masked

@@ -127,14 +127,25 @@ def all_reduce_grads_(params: Sequence[nn.Parameter], data: DataGroup) -> int:
     same step, so the same ones are None everywhere, and a first small
     collective checks that, since buckets of different gradients would
     otherwise be summed (or a rank would wait for a bucket that never
-    comes). Returns the bytes reduced."""
+    comes). The check is exact: one int8 flag a parameter (1 where its grad
+    is not None), all-reduced as [flags, -flags] by MAX, gives back
+    [flags, -flags] only when every rank holds the same pattern. Returns
+    the bytes reduced."""
+    device = params[0].device
     grads = [local_tensor(p.grad) for p in params if p.grad is not None]
     n = sum(g.numel() for g in grads)
-    counts = data.all_reduce_(torch.tensor([n, -n], dtype=torch.int64, device=params[0].device), op=dist.ReduceOp.MAX)
-    if counts.tolist() != [n, -n]:
+    flags = torch.tensor([p.grad is not None for p in params], dtype=torch.int8, device=device)
+    mine = torch.cat([flags, -flags])
+    seen = data.all_reduce_(mine.clone(), op=dist.ReduceOp.MAX)
+    if not torch.equal(seen, mine):
+        # Every rank finds a difference (the union and the intersection of
+        # the patterns differ), so all of them take this second collective.
+        counts = data.all_reduce_(torch.tensor([n, -n], dtype=torch.int64, device=device), op=dist.ReduceOp.MAX)
+        first = int((seen != mine).reshape(2, -1).any(0).nonzero()[0])
         raise RuntimeError(
-            f"rank {data.rank}: {n} gradient elements to reduce, the ranks hold between {-int(counts[1])} and "
-            f"{int(counts[0])}: their steps left different parameters without a gradient"
+            f"rank {data.rank}: {n} gradient elements in {len(grads)} of {len(params)} parameters to reduce, the "
+            f"ranks hold between {-int(counts[1])} and {int(counts[0])} elements: their steps left different "
+            f"parameters without a gradient, the first at parameter index {first}"
         )
     for bucket in _buckets(grads):
         flat = torch.cat([g.reshape(-1).float() for g in bucket])

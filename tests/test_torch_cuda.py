@@ -657,3 +657,44 @@ def test_tiny_distillation_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypat
     assert cpu_launched == (0, 0) and gpu_launched == ((0, 0) if stage == "stage0" else (1, 1))
     for key in ("loss", "distill"):
         assert gpu_first[key] > 0 and abs(gpu_first[key] - cpu_first[key]) <= 1e-4 * abs(cpu_first[key]), key
+
+
+def test_posed_adapter_on_the_card_matches_the_cpu(cuda):
+    """posed_gaussian_adapter on the card against the same call on the CPU,
+    each output within 1e-5 of its largest magnitude (f32 elementwise math,
+    rounded otherwise by the card's exp, rsqrt and 2x2 inverse), with one
+    camera a view; then its Gaussians rendered through both kernels, whose
+    gradients to the raw channels and depths are finite."""
+    from styl3r_tpu_torch.geometry.projection import sample_image_grid
+    from styl3r_tpu_torch.models.adapter import posed_gaussian_adapter, raw_gaussian_channels
+    from styl3r_tpu_torch.models.decoder import render_gaussians
+
+    rng = np.random.default_rng(3)
+    hw, v = (32, 32), 2
+    coords = sample_image_grid(hw)[0].reshape(1, -1, 2)
+    ext = np.tile(np.eye(4, dtype=np.float32), (v, 1, 1))
+    ext[1, 0, 3] = 0.1
+    k = np.tile(np.asarray([[1.1, 0, 0.5], [0, 1.1, 0.5], [0, 0, 1.0]], np.float32), (v, 1, 1))
+    args = dict(
+        extrinsics=torch.from_numpy(ext)[:, None], intrinsics=torch.from_numpy(k)[:, None], coordinates=coords,
+        depths=torch.from_numpy(rng.uniform(1.0, 3.0, (v, 1024)).astype(np.float32)),
+        opacities=torch.from_numpy(rng.uniform(0.2, 0.9, (v, 1024)).astype(np.float32)),
+        raw=torch.from_numpy(rng.normal(size=(v, 1024, raw_gaussian_channels(0))).astype(np.float32)),
+    )
+    ref = posed_gaussian_adapter(**args, image_shape=hw, sh_degree=0)
+    leaves = {name: x.to(cuda).requires_grad_(name in ("raw", "depths")) for name, x in args.items()}
+    ours = posed_gaussian_adapter(**leaves, image_shape=hw, sh_degree=0)
+    for name in ref._fields:
+        a, b = getattr(ours, name).detach().cpu(), getattr(ref, name)
+        assert (a - b).abs().max() <= 1e-5 * b.abs().max(), name
+    flat = type(ours)(*(x.reshape(1, v * 1024, *x.shape[2:]) for x in ours))
+    cam = torch.eye(4, device=cuda)[None, None]
+    kt = torch.from_numpy(k[:1]).to(cuda)[None]
+    before = (composite.launches, composite.backward_launches)
+    out = render_gaussians(flat, cam, kt, torch.full((1, 1), 0.1, device=cuda), torch.full((1, 1), 100.0, device=cuda),
+                           hw, max_per_tile=512, max_tiles_per_gaussian=8)
+    grads = torch.autograd.grad((out.color**2).mean(), (leaves["raw"], leaves["depths"]))
+    torch.cuda.synchronize()
+    assert (composite.launches, composite.backward_launches) == (before[0] + 1, before[1] + 1)
+    assert float(out.alpha.detach().max()) > 0.5
+    assert all(bool(torch.isfinite(g).all()) and bool((g != 0).any()) for g in grads)

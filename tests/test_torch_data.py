@@ -180,3 +180,32 @@ def test_llff_poses_match_jax(tmp_path):
     for a, b in zip(ours, ref):
         np.testing.assert_array_equal(a, b)
     np.testing.assert_array_equal(tcolmap.llff_intrinsics_normalized(ours[1]), jcolmap.llff_intrinsics_normalized(ref[1]))
+
+
+@pytest.mark.parametrize(
+    "model, params",
+    [("SIMPLE_RADIAL", [30.0, 24.5, 19.0, -0.12]), ("RADIAL", [30.0, 24.5, 19.0, 0.08, -0.03]),
+     ("PINHOLE", [30.0, 31.0, 24.5, 19.0])],
+    ids=["simple_radial", "radial", "pinhole"],
+)
+def test_undistort_matches_jax(model, params):
+    """The same numpy operations on both sides: equal arrays, float and
+    uint8 images alike; pinhole models pass the image through."""
+    rng = np.random.default_rng(6)
+    for image in (rng.uniform(0, 1, (40, 50, 3)).astype(np.float32), rng.integers(0, 256, (40, 50, 3), np.uint8)):
+        ours = tcolmap.undistort_image_simple_radial(image, tcolmap.ColmapCamera(1, model, 50, 40, np.asarray(params)))
+        ref = jcolmap.undistort_image_simple_radial(image, jcolmap.ColmapCamera(1, model, 50, 40, np.asarray(params)))
+        assert ours.dtype == image.dtype
+        np.testing.assert_array_equal(ours, ref)
+        if model == "PINHOLE":
+            assert ours is image
+        else:
+            assert not np.array_equal(ours, image)
+
+
+def test_undistort_refuses_other_models():
+    image = np.zeros((8, 8, 3), np.float32)
+    params = np.asarray([30.0, 31.0, 4.0, 4.0, 0.1, 0.01, 0.0, 0.0])
+    for module in (tcolmap, jcolmap):
+        with pytest.raises(ValueError, match="OPENCV"):
+            module.undistort_image_simple_radial(image, module.ColmapCamera(1, "OPENCV", 8, 8, params))

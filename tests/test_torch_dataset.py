@@ -4,9 +4,9 @@ orthographic renders, viz, drawing and warm starts against styl3r_tpu's on
 the same inputs and seeds.
 
 The data path is host-side numpy and PIL, so indices, flips, style picks
-and images must be equal and the cameras agree to 1e-6. The JAX dataset is
-pinned to its PIL decoder (its native decoder would resize off-size frames,
-which the port skips). Renders: 1e-5, as tests/test_torch_rasterizer.py
+and images must be equal and the cameras agree to 1e-6. Both datasets are
+pinned to their PIL decoders here (tests/test_torch_native.py holds their
+native decoders, which resize off-size frames that PIL's path skips). Renders: 1e-5, as tests/test_torch_rasterizer.py
 holds them. Drawing: 1e-5 (coverage from f32 distances, summed in other
 orders). Warm starts: exact, since both only select and rename weights.
 """
@@ -18,6 +18,7 @@ import pytest
 import torch
 
 import styl3r_tpu.native
+import styl3r_tpu_torch.native
 from styl3r_tpu.data import dataset as jdataset
 from styl3r_tpu.data import shims as jshims
 from styl3r_tpu.data import view_samplers as jsamplers
@@ -153,6 +154,7 @@ def test_training_shims_match_jax():
 
 def _datasets(root, stage, monkeypatch, seed=3):
     monkeypatch.setattr(styl3r_tpu.native, "decode_jpeg_batch", lambda *a, **k: None)
+    monkeypatch.setattr(styl3r_tpu_torch.native, "decode_jpeg_batch", lambda *a, **k: None)
     kw = dict(num_context_views=3, num_target_views=4, min_gap=10, max_gap=20, stage=stage)
     cfg = dict(roots=[root], style_root=root / "styles", input_image_shape=(32, 48), original_image_shape=(72, 96))
     ours = tdataset.RE10kStyleDataset(tdataset.DatasetConfig(**cfg), stage, tsamplers.ViewSamplerBounded(**kw),

@@ -68,16 +68,18 @@ def _args(root, *extra):
 @pytest.fixture(scope="module")
 def evaluated(eval_data, tmp_path_factory):
     """evaluate.py and the port's evaluate with 2 alignment steps, saving
-    the renders; the JAX side decodes with PIL, as the port does."""
+    the renders; both sides decode with PIL."""
     import evaluate
     import styl3r_tpu.native
+    import styl3r_tpu_torch.native
 
     out = tmp_path_factory.mktemp("evaluated")
     options = ("test.align_pose=true", "test.pose_align_steps=2", "test.save_image=true")
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(styl3r_tpu.native, "decode_jpeg_batch", lambda *a, **k: None)
+        mp.setattr(styl3r_tpu_torch.native, "decode_jpeg_batch", lambda *a, **k: None)
         jmeans = evaluate.main(_args(eval_data, f"test.output_path={out / 'jax'}", *options))
-    tmeans = tevaluate.main(_args(eval_data, f"test.output_path={out / 'port'}", *options))
+        tmeans = tevaluate.main(_args(eval_data, f"test.output_path={out / 'port'}", *options))
     return out, jmeans, tmeans
 
 

@@ -33,6 +33,23 @@ this module and must not start it.
     global norm 1e-3 relative: tests/test_torch_train_step.py's tolerances
     (the f32 model sums in other orders in XLA and PyTorch, and the backward
     passes through expm1 and the renderer's divisions by 1 - alpha).
+  * Stage 2 (style + identity, VGG19 at random weights) on 2 ranks against
+    the 1-process step on the whole batch of 4, dropout off, one step at
+    learning rate 0. The losses and VGG run in float64 (the loss bundle
+    takes the f32 renders and images up); the encoder, batch_to and the
+    renderer fix f32, so the gradients' tolerance is that f32 rounding,
+    measured as the distance between the whole batch's 1-process gradients
+    and the mean of its two halves' (each rank's own gradients before the
+    all-reduce, on one thread as the whole batch's; bounded itself by 1e-3
+    of each tensor's largest magnitude, stage 1's bound, which a term that
+    couples the examples of a batch, or a rank on the wrong rows, would
+    exceed): the 2 ranks' averaged gradients lie within twice that distance
+    of the whole batch's, plus 1e-6 of scale, and within 1e-6 of scale of
+    the halves' mean; the loss within 1e-5 relative; the gradient norm
+    within the gradients' L2 distance.
+  * The all-reduce's None-pattern check: two ranks that leave different
+    parameters without a gradient raise on both, even where their
+    gradients' element totals are equal.
   * pair_cap_per_gaussian is per rank: with a cap that truncates, each rank's
     render keeps the pair slots and renders what the JAX sharded render's
     shard does (live pairs and slots equal; images within 1e-5).
@@ -57,13 +74,15 @@ import torch.multiprocessing as mp
 from PIL import Image
 
 from styl3r_tpu_torch.geometry.gaussians import Gaussians
+from styl3r_tpu_torch.losses.vgg import VGG19Features
 from styl3r_tpu_torch.losses.regr3d import _quantile_mask
 from styl3r_tpu_torch.models import dpt as tdpt
 from styl3r_tpu_torch.models.decoder import render_gaussians
 from styl3r_tpu_torch.models.distiller import Dust3RTeacher
 from styl3r_tpu_torch.models.styl3r import Batch, Styl3rModel, batch_to, normalize_images
-from styl3r_tpu_torch.parallel import DataGroup, shard_batch
+from styl3r_tpu_torch.parallel import DataGroup, all_reduce_grads_, shard_batch
 from styl3r_tpu_torch.train import step as tstep
+from styl3r_tpu_torch.train.losses import LossBundle
 from styl3r_tpu_torch.train.scratch_init import scratch_init_heads
 from styl3r_tpu_torch.train.trainer import step_generator
 from styl3r_tpu_torch.utils.convert import init_like_flax_
@@ -171,12 +190,76 @@ def _steps(weights, teacher_weights, batch, data, steps, distill, grad_clip=0.5)
     return metrics, {n: p.detach().clone() for n, p in model.named_parameters()}, grads
 
 
+def _vgg():
+    """VGG19 at random weights from a fixed seed, in float64, frozen."""
+    vgg = VGG19Features()
+    init_like_flax_(vgg, torch.Generator().manual_seed(5))
+    return vgg.double().requires_grad_(False)
+
+
+def _f64_losses(bundle):
+    """The loss bundle on float64 copies of the renders and images."""
+
+    def up(output):
+        return None if output is None else output._replace(color=output.color.double())
+
+    def loss_fn(output, batch, gaussians, global_step=0, identity_output=None):
+        batch = batch._replace(target_images=batch.target_images.double(), style_image=batch.style_image.double())
+        return bundle(up(output), batch, gaussians, global_step, up(identity_output))
+
+    return loss_fn
+
+
+def _stage2_step(weights, batch, data):
+    """One stage-2 step (style 10 + identity, learning rate 0, no clip) from
+    `weights` on the whole batch, or with `data` on the rank's rows, with
+    the gs towers' dropout off. Returns its metrics, the trained parameters'
+    gradients (averaged over the ranks with `data`) and, with `data`, the
+    rank's own gradients before the all-reduce: its rows' 1-process
+    gradients."""
+    model = Styl3rModel(sh_degree=1, device="cpu", **TINY)
+    model.load_state_dict(weights)
+    if data is not None:
+        batch = shard_batch(batch, data.rank, data.world)
+    opt = tstep.make_stage2_optimizer(model, lr=LR, warmup_steps=1, total_steps=5, grad_clip=float("inf"))
+    losses = _f64_losses(LossBundle(mse_weight=None, style_weight=10.0, identity=True, vgg19=_vgg()))
+    step = tstep.make_train_step(model, opt, HW, loss_fn=losses, stylized=True, identity_branch=True, data=data,
+                                 **RENDER)
+    trained = {n: p for n, p in model.named_parameters() if p.requires_grad}
+    local = {}
+
+    def keep(name):
+        def hook(p):
+            local[name] = p.grad.detach().clone()
+        return hook
+
+    for name, p in trained.items():
+        p.register_post_accumulate_grad_hook(keep(name))
+    out = step(tstep.TrainState(), batch_to(batch, "cpu"), step_generator(1, 0, torch.device("cpu")))
+    grads = {n: p.grad.detach().clone() for n, p in trained.items()}
+    return {k: float(v) for k, v in out.items()}, grads, local
+
+
+def _none_pattern_error(data):
+    """all_reduce_grads_ where rank 0 holds the first of two 3-element
+    parameters' gradients and rank 1 the second: equal element totals, the
+    old count check's blind spot. Returns the error's message, or None."""
+    params = [torch.nn.Parameter(torch.ones(3)) for _ in range(2)]
+    params[data.rank].grad = torch.ones(3)
+    try:
+        all_reduce_grads_(params, data)
+    except RuntimeError as exc:
+        return str(exc)
+    return None
+
+
 def _step_child(rank, workdir, dropout_for_jax):
     """One rank of the step checks: (a) 2 live-dropout steps of stage 1 +
     distillation, (b) with the gs towers' dropout at `dropout_for_jax` (the
     JAX reference runs without it; a monkeypatch in the parent does not reach
-    this process) one MSE step without a clip, (c) the capped render of its
-    rows of a synthetic scene."""
+    this process) one MSE step without a clip and one stage-2 step, (c) the
+    capped render of its rows of a synthetic scene, (d) the None-pattern
+    check on unlike patterns."""
     torch.set_num_threads(1)
     workdir = Path(workdir)
     dist.init_process_group("gloo", init_method=f"file://{workdir / 'rendezvous'}", rank=rank, world_size=WORLD)
@@ -186,8 +269,9 @@ def _step_child(rank, workdir, dropout_for_jax):
         live = _steps(inputs["weights"], inputs["teacher"], inputs["batch"], data, 2, distill=True)
         tdpt.GS_DROPOUT = dropout_for_jax
         plain = _steps(inputs["weights"], None, inputs["batch"], data, 1, distill=False, grad_clip=float("inf"))
-        torch.save({"live": live, "plain": plain, "render": _port_render(inputs["scene"], rank, WORLD)},
-                   workdir / f"rank{rank}.pt")
+        stage2 = _stage2_step(inputs["weights"], inputs["batch"], data)
+        torch.save({"live": live, "plain": plain, "stage2": stage2, "render": _port_render(inputs["scene"], rank, WORLD),
+                    "none_pattern": _none_pattern_error(data)}, workdir / f"rank{rank}.pt")
     finally:
         dist.destroy_process_group()
 
@@ -265,6 +349,49 @@ def test_two_rank_step_equals_the_one_process_step(ranks):
     # Both ranks hold the same weights.
     for name, p in out[0]["live"][1].items():
         assert torch.equal(p, out[1]["live"][1][name]), name
+
+
+def test_two_rank_stage2_step_equals_the_one_process_step(ranks, monkeypatch):
+    """Measured on the CPU: the ranks' gradients equal the mean of their
+    own rows' gradients exactly and lie up to 3.7e-4 of scale from the
+    whole batch's, which is that mean's own distance from it; the loss
+    5e-8 relative."""
+    inputs, out = ranks
+    monkeypatch.setattr(tdpt, "GS_DROPOUT", 0.0)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)  # as the ranks run
+    try:
+        whole, g_whole, _ = _stage2_step(inputs["weights"], inputs["batch"], None)
+    finally:
+        torch.set_num_threads(threads)
+    assert whole["style"] > 0 and whole["identity"] > 0 and len(g_whole) > 20
+    g_halves = {n: sum(rank["stage2"][2][n] for rank in out) / WORLD for n in g_whole}
+    for r, rank in enumerate(out):
+        metrics, grads, _ = rank["stage2"]
+        assert sorted(grads) == sorted(g_whole)
+        assert metrics["loss"] == pytest.approx(whole["loss"], rel=1e-5)
+        # | |G2| - |G1| | <= |G2 - G1|, up to the norms' own rounding.
+        gap = float(torch.sqrt(sum(((grads[n] - g).double() ** 2).sum() for n, g in g_whole.items())))
+        assert abs(metrics["grad_norm"] - whole["grad_norm"]) <= gap + 1e-6 * whole["grad_norm"]
+        for name, want in g_whole.items():
+            scale = float(want.abs().max())
+            rounding = float((g_halves[name] - want).abs().max())
+            assert rounding <= 1e-3 * scale, (name, rounding, scale)
+            _close_to_scale(grads[name], g_halves[name], 1e-6, (r, name))
+            err = float((grads[name] - want).abs().max())
+            assert err <= 2 * rounding + 1e-6 * scale, (r, name, err, rounding, scale)
+
+
+def test_all_reduce_refuses_unlike_none_patterns_with_equal_totals(ranks):
+    """Rank 0 held only the first parameter's gradient and rank 1 only the
+    second's, 3 elements each: both raised, naming the first index that
+    differs."""
+    _, out = ranks
+    for r, rank in enumerate(out):
+        message = rank["none_pattern"]
+        assert message is not None, r
+        assert f"rank {r}: 3 gradient elements in 1 of 2 parameters" in message
+        assert "between 3 and 3 elements" in message and "the first at parameter index 0" in message
 
 
 def test_two_rank_step_matches_the_jax_mesh_step(ranks):

@@ -157,3 +157,26 @@ def test_generate_ctx_views():
     np.testing.assert_array_equal(
         tc.generate_ctx_views(torch.from_numpy(x)).numpy(), np.asarray(jc.generate_ctx_views(jnp.asarray(x)))
     )
+
+
+def test_random_token_mask():
+    """CroCo's RandomMask by its properties (jax.random's draws have no
+    torch counterpart): round(n * ratio) True entries in each row, from
+    ranks that permute 0..n-1; the same mask for the same generator state,
+    another for another seed."""
+    b, n, ratio = 4, 196, 0.9
+    g = torch.Generator().manual_seed(3)
+    state = g.get_state()
+    mask = tv.random_token_mask(g, b, n, ratio)
+    assert mask.shape == (b, n) and mask.dtype == torch.bool
+    assert mask.sum(1).tolist() == [round(n * ratio)] * b
+    g.set_state(state)
+    noise = torch.rand(b, n, generator=g)
+    ranks = noise.argsort(1).argsort(1)
+    assert (ranks.sort(1).values == torch.arange(n)).all()
+    assert torch.equal(mask, ranks < round(n * ratio))
+    g.set_state(state)
+    assert torch.equal(tv.random_token_mask(g, b, n, ratio), mask)
+    assert not torch.equal(tv.random_token_mask(torch.Generator().manual_seed(4), b, n, ratio), mask)
+    # JAX's mask has the same count a row.
+    assert np.asarray(jv.random_token_mask(jax.random.key(0), b, n, ratio)).sum(1).tolist() == [round(n * ratio)] * b
