@@ -34,7 +34,9 @@ fails:
      trunks stored in bf16) serves three 2-view 256^2 scenes through
      Styl3rModel.forward; the forward compositor must have been launched
      once a scene; then it is held against its plain version on the path's
-     own inputs, and 10 warm forwards are timed;
+     own inputs, and the forward is timed by bench/serve.py's measure: 10
+     forwards back to back (throughput), 10 each synchronised (latency,
+     encoder and render), and the host syncs of one;
   6. posed route: the serving model's raw Gaussian channels and densities
      for the example batch, as models/encoder.py::_adapt receives them, go
      through posed_gaussian_adapter (each context view's own camera, the
@@ -127,11 +129,23 @@ fails:
      Gaussians (each step launches each kernel once); both kernels held
      against their plain versions on its inputs and cotangents, whose depth
      part, and the backward's depth column, must not be zero;
- 14. kernel times: each kernel's device time (torch.profiler, summed over
+ 14. bench: the measurement entry points through their main(), full
+     width: styl3r_tpu_torch.bench.serve at its defaults (30 forwards back
+     to back) and bench.stages at 10 iterations on one serving model, then
+     bench.train_step's default cases (128:jnp, 128:pallas, and stage 1
+     and stage 2 at b = 2, 256^2) on a training model; each prints its
+     record on a line of its own. Each launches the forward kernel, stages
+     and train_step the backward too; the 128:jnp and 128:pallas losses
+     agree within 1e-4 of their size; both kernels are held against their
+     plain versions on the 128^2 case's own inputs and MSE cotangents, and
+     that step, computing in f32 (in bf16 the card's backward differs from
+     run to run by more), through the plain compositor and through the
+     kernels gives a loss and a squared gradient norm within 1e-4;
+ 15. kernel times: each kernel's device time (torch.profiler, summed over
      the backward's two launches a call) and launch shape (grid, block and
      registers a thread, from the profiler's trace of the same calls), call
      time and plain version's time (CUDA events), beside its bound;
- 15. reference: a tiny-width model's Gaussians on the card agree with the
+ 16. reference: a tiny-width model's Gaussians on the card agree with the
      same model's on the CPU (whose agreement with the JAX package the CPU
      tests show).
 The line before the last is a JSON object with every kernel's numbers; the
@@ -149,6 +163,11 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, ROOT)
+
+from styl3r_tpu_torch.bench import batch as bench_batch  # noqa: E402
+from styl3r_tpu_torch.bench.common import plain_compositor  # noqa: E402,F401  (the phases' and scripts' plain route)
+from styl3r_tpu_torch.bench.timing import card_line, cuda_ms, kernel_device_ms  # noqa: E402,F401
 PEAK_F32_FLOPS = 67e12  # H100 SXM FP32 (non-tensor) peak, 700 W
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 TOL = 1e-5  # kernel vs plain, f32 values of order 1: rounding only
@@ -175,94 +194,6 @@ def log(msg):
     print(msg, flush=True)
 
 
-def card_line():
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
-def cuda_ms(fn, reps):
-    """Median milliseconds of `reps` calls, each between two CUDA events."""
-    import torch
-
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def kernel_device_ms(fn, reps, kernel_names, attempts=5):
-    """Device time of one call of `fn`, summed over the CUDA kernels it
-    launches, from torch.profiler over `reps` calls: each name in
-    `kernel_names` must match kernels launched once a call. Returns the sum,
-    each kernel's mean time a call (the kernels' own time, without the
-    host's time to call them) and each kernel's launch shape in the same
-    calls (launch_shapes). The profiler on the card now and then records
-    fewer launches than were made, in some windows none; such a window is
-    measured again, up to `attempts` times, and if none is whole, each
-    kernel's mean is taken over the launches the profiler saw in the window
-    where the fewest were lost (every kernel seen at least once)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    best = None
-    for _ in range(attempts):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        counts, each = {}, {}
-        for name in kernel_names:
-            hits = [e for e in prof.key_averages() if name in e.key]
-            counts[name] = sum(e.count for e in hits)
-            if counts[name]:
-                each[name] = sum(e.self_device_time_total for e in hits) / counts[name] / 1e3
-        if any(c > reps for c in counts.values()):
-            raise AssertionError(f"profiler saw {counts} launches in {reps} calls: a name matches other kernels")
-        if all(c == reps for c in counts.values()):
-            return sum(each.values()), each, launch_shapes(prof, kernel_names)
-        log(f"profiler saw {counts} launches, expected {reps} of each; measuring again")
-        if min(counts.values()) > 0 and (best is None or min(counts.values()) > min(best[0].values())):
-            best = (counts, each, launch_shapes(prof, kernel_names))
-    if best is None:
-        raise AssertionError(f"profiler saw no launch of a kernel of {kernel_names} in {attempts} windows")
-    counts, each, shapes = best
-    log(f"profiler: no whole window in {attempts}; each kernel's mean over the {counts} launches it saw")
-    return sum(each.values()), each, shapes
-
-
-def launch_shapes(prof, kernel_names):
-    """Each named kernel's launch as the profiler's trace recorded it:
-    {name: {"grid": [x, y, z], "block": [x, y, z], "registers": n}}, the
-    registers a thread; raises if the calls launched a kernel in more than
-    one shape."""
-    import tempfile
-
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    shapes = {}
-    for name in kernel_names:
-        seen = {
-            (tuple(e["args"]["grid"]), tuple(e["args"]["block"]), e["args"]["registers per thread"])
-            for e in events if e.get("cat") == "kernel" and name in e.get("name", "")
-        }
-        if len(seen) != 1:
-            raise AssertionError(f"profiler trace: {name} launched in {len(seen)} shapes: {sorted(seen)}")
-        grid, block, regs = seen.pop()
-        shapes[name] = {"grid": list(grid), "block": list(block), "registers": regs}
-    return shapes
-
-
 def shape_text(shape):
     blocks = shape["grid"][0] * shape["grid"][1] * shape["grid"][2]
     return (f"{blocks} blocks (grid {'x'.join(map(str, shape['grid']))}) of "
@@ -271,25 +202,13 @@ def shape_text(shape):
 
 
 def example_batch(seed, device, v=2, hw=256, t=1, b=1, targets=False):
-    """bench.py's scene (bench_train_step.py's with b > 1): v context views
-    + a style image, uniform noise from `seed`, t targets at the first
-    context camera, with target images if `targets`."""
+    """bench.py's scene (bench_train_step.py's with b > 1) from a fresh
+    generator seeded with `seed`: v context views + a style image of uniform
+    noise, t targets (the first at context view 0's camera, the others 0.2
+    along x), with target images if `targets`."""
     import numpy as np
 
-    from styl3r_tpu_torch.models.styl3r import Batch, batch_to
-
-    rng = np.random.default_rng(seed)
-    k = np.asarray([[1.1, 0, 0.5], [0, 1.1, 0.5], [0, 0, 1.0]], np.float32)
-    return batch_to(Batch(
-        context_images=rng.uniform(0, 1, (b, v, hw, hw, 3)),
-        context_intrinsics=np.broadcast_to(k, (b, v, 3, 3)),
-        target_extrinsics=np.broadcast_to(np.eye(4, dtype=np.float32), (b, t, 4, 4)),
-        target_intrinsics=np.broadcast_to(k, (b, t, 3, 3)),
-        target_near=np.full((b, t), 1.0),
-        target_far=np.full((b, t), 100.0),
-        style_image=rng.uniform(0, 1, (b, hw, hw, 3)),
-        target_images=rng.uniform(0, 1, (b, t, hw, hw, 3)) if targets else None,
-    ), device)
+    return bench_batch.example_batch(np.random.default_rng(seed), b, v, hw, hw, t, hw, device, targets)
 
 
 def composite_work(inputs, n_done):
@@ -644,22 +563,6 @@ def synthetic_scene(seed=0, n_frames=6, hw=256):
     extrinsics[:, 0, 3] = 0.05 * np.arange(n_frames)
     style = rng.uniform(0, 1, (hw, hw, 3)).astype(np.float32)
     return images, intrinsics, extrinsics, style
-
-
-@contextlib.contextmanager
-def plain_compositor():
-    """render_gaussians and its gradient through the plain versions on the
-    card's tensors: composite_tiles and composite_backward are swapped for
-    composite_tiles_plain and composite_backward_plain (no launch counted)."""
-    from styl3r_tpu_torch.ops.rasterizer import composite
-
-    saved = composite.composite_tiles, composite.composite_backward
-    composite.composite_tiles = composite.composite_tiles_plain
-    composite.composite_backward = lambda *args, max_per_tile: composite.composite_backward_plain(*args)
-    try:
-        yield
-    finally:
-        composite.composite_tiles, composite.composite_backward = saved
 
 
 def delta_grads(gaussians, extrinsics, intrinsics, near, far, images, hw, render_kwargs):
@@ -2670,7 +2573,6 @@ def distributed_child(argv):
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     role, args = argv[0], json.loads(argv[1])
@@ -2827,6 +2729,102 @@ def distributed_phase(card, batch_size=2, steps=4):
                 fwd=fwd_res, bwd=bwd_res)
 
 
+BENCH_REL_TOL = 1e-4  # the 128^2 step through the plain compositor against the kernels
+
+
+def bench_phase(card, dev):
+    """The measurement entry points through their main(), at full width:
+    bench/serve.py at its defaults and bench/stages.py at 10 iterations on
+    one serving model, then bench/train_step.py's default cases on a
+    training model, each launch counted; then both kernels held against
+    their plain versions on the 128^2 case's own inputs and MSE cotangents,
+    and that case's step computing in f32 through each route. Each entry
+    point prints its record on a line of its own."""
+    import torch
+
+    from styl3r_tpu_torch.bench import serve, stages, train_step
+    from styl3r_tpu_torch.bench.common import route, serving_model
+    from styl3r_tpu_torch.models.styl3r import Styl3rModel
+    from styl3r_tpu_torch.ops.rasterizer import composite
+
+    t0 = time.perf_counter()
+    launches = {}
+
+    def counted(path, run):
+        composite.launches = composite.backward_launches = 0
+        out = run()
+        launches[path] = {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}
+        return out
+
+    model = serving_model(dev, {})
+    served = counted("bench_serve", lambda: serve.main([], model=model))
+    staged = counted("bench_stages", lambda: stages.main(["--iters", "10"], model=model))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = train_step.training_model(dev, {})
+    trained = counted("bench_train", lambda: train_step.main([], model=model))
+
+    if not (served["value"] > 0 and 0 < served["live_pairs_max"] <= served["pair_slots"]
+            and served["mfu"] > 0 and served["latency_ms"] > 0):
+        raise AssertionError(f"bench serve: record {served}")
+    for case in train_step.DEFAULT_CASES.split(","):
+        if not trained.get(case, 0) > 0:
+            raise AssertionError(f"bench train_step: no time for case {case}")
+    a, b = trained["128:jnp:loss"], trained["128:pallas:loss"]
+    if not abs(a - b) <= BENCH_REL_TOL * abs(a):
+        raise AssertionError(f"bench train_step: 128:jnp loss {a} against 128:pallas {b}")
+    missing = [name for name in stages.ABSENT if name in staged["per_scene_ms"]]
+    if missing or any(not v > 0 for v in staged["per_scene_ms"].values()):
+        raise AssertionError(f"bench stages: {staged['per_scene_ms']}")
+    for path, kernels in (("bench_serve", ("composite_fwd",)), ("bench_stages", ("composite_fwd", "composite_bwd")),
+                          ("bench_train", ("composite_fwd", "composite_bwd"))):
+        for kernel in kernels:
+            if not launches[path][kernel]:
+                raise AssertionError(f"kernel {kernel} was not launched by {path}")
+
+    # Both kernels on the 128:pallas case's own inputs and MSE cotangents.
+    hw = (128, 128)
+    batch = train_step.case_batch(train_step.parse_case("128:pallas"), hw, dev)
+    with torch.no_grad():
+        inputs = main_path_inputs(model.predict_gaussians(batch), *batch[2:6], hw, TRAIN_RENDER)
+        fwd = check_composite(inputs, 2048)
+        bwd = check_composite_bwd(inputs, 2048, *mse_cotangents(inputs, 2048, batch.target_images))
+    # The 128^2 step's squared gradient norm through each route, computing
+    # in f32: in bf16 the card's backward differs between two runs of one
+    # route by up to 8e-4 of it (PERF.md §6), more than the kernels do.
+    del model
+    model = Styl3rModel(sh_degree=0, device=dev, seed=0)  # seed 0's weights, f32 compute
+    step = train_step.gradient_step(model, batch, hw, train_step.loss_of("stage1", None), TRAIN_RENDER)
+    f32_step = {}
+    for impl in ("jnp", "pallas"):
+        with route(impl):
+            loss, sq_norm, _ = step(torch.zeros((), device=dev))
+        f32_step[impl] = {"loss": float(loss), "grad_sq_norm": float(sq_norm)}
+    for key in ("loss", "grad_sq_norm"):
+        a, b = f32_step["jnp"][key], f32_step["pallas"][key]
+        if not abs(a - b) <= BENCH_REL_TOL * abs(a):
+            raise AssertionError(f"bench: the f32 128^2 step's {key}, plain {a} against kernels {b}")
+    log(f"bench: the 128^2 stage-1 step computing in f32, plain compositor against kernels: loss "
+        f"{f32_step['jnp']['loss']:.9g} / {f32_step['pallas']['loss']:.9g}, squared gradient norm "
+        f"{f32_step['jnp']['grad_sq_norm']:.9g} / {f32_step['pallas']['grad_sq_norm']:.9g}; in bf16 (train_step) "
+        f"{trained['128:jnp:grad_sq_norm']:.9g} / {trained['128:pallas:grad_sq_norm']:.9g}")
+    log(f"kernel composite_fwd, the 128^2 train-step case's inputs ({int(inputs.live_pairs)} live pairs): agrees "
+        f"with the plain version, max err {fwd['max_abs_err']:.3g}; {fwd_windows_line(fwd)}")
+    log(f"kernel composite_bwd, the 128^2 train-step case's inputs and MSE cotangents: agrees with the plain "
+        f"version, max err {bwd['max_abs_err']:.3g} ({bwd['max_rel_err']:.3g} of its column's largest gradient); "
+        f"{windows_line(bwd)}")
+    del model, inputs
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    log(f"bench: serve {served['value']} scenes/s back to back, latency {served['latency_ms']:.2f} ms; train "
+        f"{', '.join(f'{c} {trained[c]} ms' for c in train_step.DEFAULT_CASES.split(','))}; stages' full forward "
+        f"{staged['per_scene_ms']['full forward']:.2f} ms; launches {launches}; phase in {seconds:.1f} s [{card}]")
+    return dict(serve=served, train_step=trained, stages_per_scene_ms=staged["per_scene_ms"], launches=launches,
+                f32_step=f32_step, fwd=fwd, bwd=bwd, seconds=seconds)
+
+
 def fwd_time_line(what, res, card):
     log(f"kernel composite_fwd, {what}: {res['ms']:.4f} ms on the device, {res['call_ms']:.4f} ms a call "
         f"(CUDA events, median of 20), plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.5f} ms "
@@ -2851,7 +2849,6 @@ def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
-    sys.path.insert(0, ROOT)
     from styl3r_tpu_torch import native
     from styl3r_tpu_torch.models.styl3r import Styl3rModel
     from styl3r_tpu_torch.ops.rasterizer import composite
@@ -2947,31 +2944,20 @@ def main():
     log(f"kernel composite_fwd, serving path's own inputs: agrees with the plain version, "
         f"max err {res_main['max_abs_err']:.3g}; {fwd_windows_line(res_main)}")
 
-    # -- serving timing: 10 warm forwards, encoder and render split ----------
-    from styl3r_tpu_torch.models.decoder import render_gaussians
+    # -- serving timing: forwards back to back (throughput) and each
+    # synchronised (latency), bench/serve.py's measurement ----------------
+    from styl3r_tpu_torch.bench import serve
 
-    enc_ms, ren_ms = [], []
-    with torch.inference_mode():
-        for _ in range(10):
-            e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-            e[0].record()
-            g = model.predict_gaussians(batch)
-            e[1].record()
-            render_gaussians(g, batch.target_extrinsics, batch.target_intrinsics, batch.target_near,
-                             batch.target_far, hw, **render_kwargs)
-            e[2].record()
-            torch.cuda.synchronize()
-            enc_ms.append(e[0].elapsed_time(e[1]))
-            ren_ms.append(e[1].elapsed_time(e[2]))
-    total = [a + b for a, b in zip(enc_ms, ren_ms)]
-    step_ms = statistics.median(total)
+    timing = serve.measure(model, batch, hw, render_kwargs, iters=10)
     fwd_flops = flops.styl3r_forward_flops(b=1, v=2, h=256, w=256, style_hw=256, n_targets=1,
                                            pair_cap_per_gaussian=2)["total"]
-    util = flops.mfu(fwd_flops, step_ms / 1e3)
-    log(f"main path: {1e3 / step_ms:.3f} scenes/s, {step_ms:.2f} ms/scene (encoder "
-        f"{statistics.median(enc_ms):.2f} ms, render {statistics.median(ren_ms):.2f} ms; median of 10), "
-        f"{util['tflops']:.1f} TFLOP/s = MFU {util['mfu']:.4f} of 989 TFLOP/s bf16 [{card}]")
-    del gaussians, out, g
+    util = flops.mfu(fwd_flops, timing["ms"] / 1e3)
+    log(f"main path: {timing['scenes_per_sec']:.3f} scenes/s back to back ({timing['ms']:.2f} ms a scene, 10 "
+        f"forwards, one synchronise), {util['tflops']:.1f} TFLOP/s = MFU {util['mfu']:.4f} of 989 TFLOP/s bf16; "
+        f"latency {timing['latency_ms']:.2f} ms (encoder {timing['encoder_ms']:.2f} ms, render "
+        f"{timing['render_ms']:.2f} ms; median of {serve.LATENCY_REPS} synchronised); "
+        f"{timing['host_syncs']['count']} host syncs a forward, at {timing['host_syncs']['where']} [{card}]")
+    del gaussians, out
 
     # -- the posed adapter's route: the model's raw channels through
     # posed_gaussian_adapter, rendered and differentiated ------------------
@@ -3077,6 +3063,10 @@ def main():
             if not launches[path][kernel]:
                 raise AssertionError(f"kernel {kernel} was not launched by {path}")
 
+    # -- the measurement entry points: bench.{serve,stages,train_step} ------
+    bench = bench_phase(card, dev)
+    launches.update(bench.pop("launches"))
+
     # -- kernel times: device time from the profiler, after the paths'
     # timing, which the profiler's attached tracing would slow down ---------
     for what, res in (("dense cloud", res_dense), ("serving path's own inputs", res_main),
@@ -3088,7 +3078,8 @@ def main():
                       ("the refinement recovery's first step", evaluation["recovery_fwd"]),
                       ("stage 1 + distill's first step", distill["fwd"]),
                       ("the adaattn + depth route's inputs", secondary["fwd"]),
-                      ("the posed route's inputs", posed["fwd"])):
+                      ("the posed route's inputs", posed["fwd"]),
+                      ("the 128^2 train-step case's inputs", bench["fwd"])):
         fwd_time_line(what, composite_device_ms(res), card)
     for what, res in (("dense cloud", bwd_dense), ("training path's own inputs", bwd_main),
                       ("alignment's own inputs", infer["bwd"]), ("the fit's first step's inputs", fit["bwd"]),
@@ -3097,7 +3088,8 @@ def main():
                       ("the refinement recovery's first step", evaluation["recovery_bwd"]),
                       ("stage 1 + distill's first step", distill["bwd"]),
                       ("the adaattn + depth route's inputs and cotangents", secondary["bwd"]),
-                      ("the posed route's inputs and MSE cotangents", posed["bwd"])):
+                      ("the posed route's inputs and MSE cotangents", posed["bwd"]),
+                      ("the 128^2 train-step case's inputs and MSE cotangents", bench["bwd"])):
         bwd_time_line(what, composite_bwd_device_ms(res), card)
     # The 2-rank route's kernels were timed in its rank 0's process.
     fwd_time_line("rank 0's render of the 2-rank gloo step", distributed["fwd"], card)
@@ -3122,7 +3114,8 @@ def main():
                 "max_abs_err": res["max_abs_err"], "max_rel_err": res["max_rel_err"]}
 
     all_bwd = (bwd_dense, bwd_main, infer["bwd"], fit["bwd"], recovery_bwd, evaluation["bwd"],
-               evaluation["recovery_bwd"], distill["bwd"], secondary["bwd"], distributed["bwd"], posed["bwd"])
+               evaluation["recovery_bwd"], distill["bwd"], secondary["bwd"], distributed["bwd"], posed["bwd"],
+               bench["bwd"])
 
     kernels = [
         {
@@ -3136,7 +3129,8 @@ def main():
                                                                infer["video_fwd"], fit["fwd"], fit["ortho_fwd"],
                                                                recovery_fwd, evaluation["fwd"],
                                                                evaluation["recovery_fwd"], distill["fwd"],
-                                                               secondary["fwd"], distributed["fwd"], posed["fwd"])),
+                                                               secondary["fwd"], distributed["fwd"], posed["fwd"],
+                                                               bench["fwd"])),
             **{k: res_main[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
             "windows": res_main["windows"],
@@ -3155,6 +3149,7 @@ def main():
             "adaattn_depth_inputs": {**fwd_numbers(secondary["fwd"]), "max_abs_err": secondary["fwd"]["max_abs_err"]},
             "dist_gloo_inputs": {**fwd_numbers(distributed["fwd"]), "max_abs_err": distributed["fwd"]["max_abs_err"]},
             "posed_inputs": {**fwd_numbers(posed["fwd"]), "max_abs_err": posed["fwd"]["max_abs_err"]},
+            "bench_train_128_inputs": {**fwd_numbers(bench["fwd"]), "max_abs_err": bench["fwd"]["max_abs_err"]},
         },
         {
             "name": "composite_bwd",
@@ -3182,6 +3177,7 @@ def main():
                                      "nonzero_by_column": secondary["bwd"]["nonzero_by_column"]},
             "dist_gloo_inputs": bwd_numbers(distributed["bwd"]),
             "posed_inputs": bwd_numbers(posed["bwd"]),
+            "bench_train_128_inputs": bwd_numbers(bench["bwd"]),
         },
     ]
     training = {f"stage{i}": {k: st[k] for k in ("ms", "examples_per_s", "peak_gib", "live_pairs")}
@@ -3200,9 +3196,11 @@ def main():
     secondary_summary = {k: v for k, v in secondary.items() if k not in ("fwd", "bwd")}
     distributed_summary = {k: v for k, v in distributed.items() if k not in ("fwd", "bwd")}
     posed_summary = {k: v for k, v in posed.items() if k not in ("fwd", "bwd")}
+    bench_summary = {k: v for k, v in bench.items() if k not in ("fwd", "bwd")}
     print(json.dumps({"kernels": kernels, "training": training, "inference": inference,
                       "evaluation": evaluation_summary, "fit": fit_summary, "distill": distill_summary,
                       "secondary": secondary_summary, "distributed": distributed_summary, "posed": posed_summary,
+                      "bench": bench_summary,
                       "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

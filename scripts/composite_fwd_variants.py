@@ -18,7 +18,7 @@ three forward inputs (the dense cloud, the serving path's own inputs and
 the stage-1 training path's own inputs) and on each input's heaviest tile
 alone (every other count set to 0), which says whether that tile's chain
 sets the time. Call times (CUDA events, median of 20) come first, in the
-order A B ... B A; device times (chip_smoke.kernel_device_ms: torch.profiler,
+order A B ... B A; device times (bench/timing.py's kernel_device_ms: torch.profiler,
 mean of 20, with the launch shape from its trace) after them, in the same
 order, because the profiler stays attached and slows later launches. The
 last line is a JSON object with every number.
@@ -142,7 +142,7 @@ def forward_inputs(dev):
                             device=dev, seed=0).cast_dtypes()
         batch = cs.example_batch(2, dev)
         serve_kwargs = dict(max_tiles_per_gaussian=8, max_per_tile=2048, pair_cap_per_gaussian=2)
-        inputs["serving"] = cs.main_path_inputs(model.predict_gaussians(batch), batch, hw, serve_kwargs)
+        inputs["serving"] = cs.main_path_inputs(model.predict_gaussians(batch), *batch[2:6], hw, serve_kwargs)
     del model
     torch.cuda.empty_cache()
     model = Styl3rModel(sh_degree=0, backbone_dtype=torch.bfloat16, head_trunk_dtype=torch.bfloat16,
@@ -152,7 +152,7 @@ def forward_inputs(dev):
     with torch.no_grad():
         g = model.predict_gaussians(train_batch._replace(style_image=train_batch.context_images[:, 0]))
         train_kwargs = dict(max_tiles_per_gaussian=8, max_per_tile=2048, pair_cap_per_gaussian=4)
-        inputs["stage-1"] = cs.main_path_inputs(g, train_batch, hw, train_kwargs)
+        inputs["stage-1"] = cs.main_path_inputs(g, *train_batch[2:6], hw, train_kwargs)
     del model, g
     torch.cuda.empty_cache()
     return inputs
@@ -169,14 +169,15 @@ def main():
         return 1
     sys.path.insert(0, ROOT)
     import chip_smoke as cs
+    from styl3r_tpu_torch.bench.timing import card_line, cuda_ms, kernel_device_ms, log
     from styl3r_tpu_torch.ops.rasterizer import composite
     from styl3r_tpu_torch.utils import cuda_build
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    card = cs.card_line()
-    cs.log(card)
+    card = card_line()
+    log(card)
 
     builds = sources(opts.baseline)
     kernels = {name: bind(so) for name, so in build(builds, os.path.join(cuda_build.BUILD_DIR, "variants")).items()}
@@ -190,8 +191,8 @@ def main():
         counts = torch.zeros_like(a[2])
         counts[heavy] = a[2][heavy]
         args[f"{what}, heaviest tile alone"] = (a[0], a[1], counts, *a[3:])
-        cs.log(f"{what}: {int(inputs[what].live_pairs)} live pairs; tile {heavy} walks {int(n_done[heavy])} windows; "
-               f"{cs.fwd_windows_line(cs.check_composite(inputs[what], 2048, reps=3))}")
+        log(f"{what}: {int(inputs[what].live_pairs)} live pairs; tile {heavy} walks {int(n_done[heavy])} windows; "
+            f"{cs.fwd_windows_line(cs.check_composite(inputs[what], 2048, reps=3))}")
 
     order = list(kernels) + list(reversed(kernels))
     result = {"card": card, "variants": {name: {"flags": list(builds[name][1]), "max_err": {}, "call_ms": {},
@@ -205,18 +206,18 @@ def main():
             for name in order:
                 use(kernels[name])
                 result["variants"][name]["call_ms"].setdefault(what, []).append(
-                    cs.cuda_ms(lambda: composite.composite_tiles(*a), 20))
+                    cuda_ms(lambda: composite.composite_tiles(*a), 20))
         for what, a in args.items():
             for name in order:
                 use(kernels[name])
-                ms, _, shapes = cs.kernel_device_ms(lambda: composite.composite_tiles(*a), 20, ("composite_fwd_kernel",))
+                ms, _, shapes = kernel_device_ms(lambda: composite.composite_tiles(*a), 20, ("composite_fwd_kernel",))
                 result["variants"][name]["ms"].setdefault(what, []).append(ms)
                 result["variants"][name]["launch"][what] = shapes["composite_fwd_kernel"]
     for name, res in result["variants"].items():
         for what in res["ms"]:
-            cs.log(f"{name}, {what}: device {', '.join(f'{t:.4f}' for t in res['ms'][what])} ms; call "
-                   f"{', '.join(f'{t:.4f}' for t in res['call_ms'][what])} ms; launched as "
-                   f"{cs.shape_text(res['launch'][what])}; max err {res['max_err'][what]:.3g} [{card}]")
+            log(f"{name}, {what}: device {', '.join(f'{t:.4f}' for t in res['ms'][what])} ms; call "
+                f"{', '.join(f'{t:.4f}' for t in res['call_ms'][what])} ms; launched as "
+                f"{cs.shape_text(res['launch'][what])}; max err {res['max_err'][what]:.3g} [{card}]")
     print(json.dumps(result), flush=True)
     return 0
 

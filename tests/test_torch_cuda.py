@@ -698,3 +698,22 @@ def test_posed_adapter_on_the_card_matches_the_cpu(cuda):
     assert (composite.launches, composite.backward_launches) == (before[0] + 1, before[1] + 1)
     assert float(out.alpha.detach().max()) > 0.5
     assert all(bool(torch.isfinite(g).all()) and bool((g != 0).any()) for g in grads)
+
+
+def test_serve_on_the_card_through_either_compositor(cuda, capsys):
+    """python -m styl3r_tpu_torch.bench.serve --tiny on the card, through
+    the kernel and through the plain compositor: the same scene gives the
+    same live pairs and slots, and only the kernel route launches."""
+    from styl3r_tpu_torch.bench import common, serve
+
+    model = common.serving_model(cuda, common.TINY)
+    records = {}
+    for impl in ("pallas", "jnp"):
+        before = composite.launches
+        records[impl] = serve.main(["--tiny", "--iters", "2", "--impl", impl], model=model)
+        records[impl]["launched"] = composite.launches - before
+        assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["metric"] == records[impl]["metric"]
+    assert records["pallas"]["live_pairs_max"] == records["jnp"]["live_pairs_max"]
+    assert records["pallas"]["pair_slots"] == records["jnp"]["pair_slots"]
+    assert records["pallas"]["launched"] > 0 and records["jnp"]["launched"] == 0
+    assert records["pallas"]["mfu"] > 0 and records["pallas"]["card"]
