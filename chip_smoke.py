@@ -141,11 +141,23 @@ fails:
      that step, computing in f32 (in bf16 the card's backward differs from
      run to run by more), through the plain compositor and through the
      kernels gives a loss and a squared gradient norm within 1e-4;
- 15. kernel times: each kernel's device time (torch.profiler, summed over
+ 15. overfit colmap: the scene-overfit entry point,
+     styl3r_tpu_torch.train.overfit_colmap.main, at full width in f32 (the
+     script's default; pts3d bound 20, scratch_init_heads) on a synthetic
+     COLMAP scene built in a temporary directory (48 frames at 256^2 of
+     three textured planes ray-cast along a camera arc, with points3D.bin
+     sampled on them): 20 stage-1 steps with a held-out evaluation every
+     10, then 4 stage-2 steps; each stage-1 step launches each kernel once,
+     each stage-2 step twice, each held-out view the forward once; the
+     steps and evaluations are timed with CUDA events, the record must be
+     finite and carry the card; the scene's sparse anchor reaches both
+     contexts; both kernels are held against their plain versions on the
+     trained model's render of a training sample and its MSE cotangents;
+ 16. kernel times: each kernel's device time (torch.profiler, summed over
      the backward's two launches a call) and launch shape (grid, block and
      registers a thread, from the profiler's trace of the same calls), call
      time and plain version's time (CUDA events), beside its bound;
- 16. reference: a tiny-width model's Gaussians on the card agree with the
+ 17. reference: a tiny-width model's Gaussians on the card agree with the
      same model's on the CPU (whose agreement with the JAX package the CPU
      tests show).
 The line before the last is a JSON object with every kernel's numbers; the
@@ -2825,6 +2837,232 @@ def bench_phase(card, dev):
                 f32_step=f32_step, fwd=fwd, bwd=bwd, seconds=seconds)
 
 
+def _texture(plane, a, b):
+    """A plane's colour at in-plane coordinates (a, b): a checkerboard of
+    its palette's colours, shaded by a low-frequency wave."""
+    import numpy as np
+
+    cells = np.floor(a / plane["cell"]).astype(np.int64) * 7 + np.floor(b / plane["cell"]).astype(np.int64) * 13
+    shade = 0.75 + 0.25 * np.sin(3.0 * a) * np.cos(2.0 * b)
+    return plane["palette"][cells % len(plane["palette"])] * shade[..., None]
+
+
+def overfit_scene(directory, n_frames=48, size=256, n_points=4096, seed=0):
+    """A COLMAP scene that holds together, in `directory`: a back wall, a
+    floor and a slanted panel, each textured, ray-cast in numpy from
+    n_frames pinhole cameras on an arc (w2c rotations about the y axis, all
+    looking at the panel), saved as numbered size^2 PNGs with a text model
+    (cameras.txt, images.txt) and points3D.bin: n_points sampled on the
+    planes with their colours. Returns the directory."""
+    import struct
+    from pathlib import Path
+
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    directory = Path(directory)
+    sparse = directory / "sparse" / "0"
+    (directory / "images").mkdir(parents=True, exist_ok=True)
+    sparse.mkdir(parents=True, exist_ok=True)
+    slant = np.array([1.0, 0.0, -0.6]) / np.linalg.norm([1.0, 0.0, -0.6])
+    planes = [dict(origin=np.array(o), u=np.array(u), v=np.array(v), half=half, cell=cell,
+                   palette=rng.uniform(0.1, 0.95, (16, 3)))
+              for o, u, v, half, cell in (([0.0, 0.0, 4.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0], (4.0, 2.0), 0.5),
+                                          ([0.0, 1.0, 2.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0], (4.0, 3.0), 0.4),
+                                          ([0.3, 0.0, 2.2], slant, [0.0, 1.0, 0.0], (0.6, 0.6), 0.15))]
+    f = 0.9 * size
+    (sparse / "cameras.txt").write_text(f"1 PINHOLE {size} {size} {f!r} {f!r} {size / 2!r} {size / 2!r}\n")
+    pix = np.arange(size) + 0.5
+    d_cam = np.stack([*np.meshgrid((pix - size / 2) / f, (pix - size / 2) / f), np.ones((size, size))], -1)
+    target = np.array([0.0, 0.0, 2.2])
+    lines = []
+    for i, theta in enumerate(np.linspace(-0.35, 0.35, n_frames)):
+        rot = np.array([[np.cos(theta), 0.0, np.sin(theta)], [0.0, 1.0, 0.0], [-np.sin(theta), 0.0, np.cos(theta)]])
+        center = target - 2.5 * rot[2]  # rot[2]: the camera's forward axis in the world
+        dirs = d_cam @ rot
+        depth = np.full((size, size), np.inf)
+        # Sky where no plane is hit: a vertical gradient.
+        image = np.broadcast_to(np.stack([0.55 + 0.2 * dirs[..., 1], 0.65 + 0.1 * dirs[..., 1],
+                                          np.full((size, size), 0.9)], -1), (size, size, 3)).copy()
+        for plane in planes:
+            normal = np.cross(plane["u"], plane["v"])
+            t = ((plane["origin"] - center) @ normal) / (dirs @ normal)
+            rel = center + t[..., None] * dirs - plane["origin"]
+            a, b = rel @ plane["u"], rel @ plane["v"]
+            hit = (t > 1e-3) & (t < depth) & (np.abs(a) <= plane["half"][0]) & (np.abs(b) <= plane["half"][1])
+            depth = np.where(hit, t, depth)
+            image[hit] = _texture(plane, a[hit], b[hit])
+        Image.fromarray((np.clip(image, 0, 1) * 255).round().astype(np.uint8)).save(
+            directory / "images" / f"{i:04d}.png")
+        q = (np.cos(theta / 2), 0.0, np.sin(theta / 2), 0.0)  # the rotation about y, COLMAP's (w, x, y, z)
+        tvec = -rot @ center
+        lines.append(f"{i + 1} {' '.join(map(repr, map(float, q)))} {' '.join(map(repr, tvec.tolist()))} 1 "
+                     f"{i:04d}.png\n0.0 0.0 -1\n")
+    (sparse / "images.txt").write_text("".join(lines))
+    with open(sparse / "points3D.bin", "wb") as fh:
+        per_plane = n_points // len(planes)
+        fh.write(struct.pack("<Q", per_plane * len(planes)))
+        for k, plane in enumerate(planes):
+            ab = rng.uniform(-1, 1, (per_plane, 2)) * np.asarray(plane["half"])
+            xyz = plane["origin"] + ab[:, :1] * plane["u"] + ab[:, 1:] * plane["v"]
+            rgb = (np.clip(_texture(plane, ab[:, 0], ab[:, 1]), 0, 1) * 255).round().astype(np.uint8)
+            for j in range(per_plane):
+                fh.write(struct.pack("<Q3d3Bd", k * per_plane + j, *xyz[j], *rgb[j], 0.5) + struct.pack("<Q", 0))
+    return directory
+
+
+def overfit_phase(card, dev, frames=48, size=256, steps=20, eval_every=10, stage2_steps=4, model_name="full"):
+    """The scene-overfit entry point, python -m
+    styl3r_tpu_torch.train.overfit_colmap, through its main() on a synthetic
+    COLMAP scene (overfit_scene): the model at `model_name` width in f32
+    (the script's default) with pts3d_bound 20 and scratch_init_heads,
+    `steps` stage-1 steps with a held-out evaluation every `eval_every`,
+    then `stage2_steps` stage-2 steps, the script's other flags at their
+    defaults (lr 2e-4 after 100 warm-up steps). Each step and evaluation is
+    timed with CUDA events and its launches counted (a stage-1 step
+    launches each kernel once, a stage-2 step twice, a held-out view the
+    forward once).
+    Then the scene's sparse anchor is built, and both kernels are held
+    against their plain versions on the trained model's render of a
+    training sample and its MSE cotangents."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from styl3r_tpu_torch.ops.rasterizer import composite
+    from styl3r_tpu_torch.train import overfit_colmap as oc
+
+    t0 = time.perf_counter()
+    seen = {1: [], 2: [], "eval": []}
+    make_train_step, eval_psnr = oc.make_train_step, oc.eval_psnr
+
+    def timed(fn, on_done):
+        def call(*args, **kwargs):
+            fwd0, bwd0 = composite.launches, composite.backward_launches
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            end.synchronize()
+            on_done(out, args, dict(ms=start.elapsed_time(end), fwd=composite.launches - fwd0,
+                                    bwd=composite.backward_launches - bwd0))
+            return out
+        return call
+
+    def timed_make_train_step(*args, **kwargs):
+        stage = 2 if kwargs.get("identity_branch") else 1
+
+        def done(metrics, _, rec):
+            seen[stage].append(dict(rec, live=int(metrics["live_pairs"]), slots=int(metrics["pair_slots"]),
+                                    loss=float(metrics["loss"])))
+        return timed(make_train_step(*args, **kwargs), done)
+
+    def eval_done(psnr, args, rec):
+        seen["eval"].append(dict(rec, views=len(args[4]), psnr=psnr[0]))
+
+    with tempfile.TemporaryDirectory(prefix="styl3r_overfit_") as tmp:
+        t_scene = time.perf_counter()
+        scene = overfit_scene(Path(tmp) / "scene", n_frames=frames, size=size)
+        t_scene = time.perf_counter() - t_scene
+        torch.cuda.synchronize()
+        # Earlier phases keep their compositor inputs on the card for the
+        # kernel times at the end; the phase's peak is read beside them.
+        resident_gib = torch.cuda.memory_allocated() / 2**30
+        model = oc.build_model(model_name, dev)
+        n_params = sum(p.numel() for p in model.parameters())
+        output = Path(tmp) / "overfit.json"
+        argv = ["--scene-dir", str(scene), "--size", str(size), "--model", model_name, "--steps", str(steps),
+                "--eval-every", str(eval_every), "--stage2-steps", str(stage2_steps), "--output", str(output)]
+        torch.cuda.reset_peak_memory_stats()
+        oc.make_train_step, oc.eval_psnr = timed_make_train_step, timed(eval_psnr, eval_done)
+        composite.launches = composite.backward_launches = 0
+        try:
+            record = oc.main(argv, model=model)
+        finally:
+            oc.make_train_step, oc.eval_psnr = make_train_step, eval_psnr
+        launches = {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        if json.loads(output.read_text()) != record:
+            raise AssertionError("overfit colmap: the record written differs from the one returned")
+
+        # The record, the steps and the evaluations.
+        s1, s2, evals = seen[1], seen[2], seen["eval"]
+        losses = [r["loss"] for r in s1 + s2] + [r["loss"] for r in record["series"] + record["stage2"]["series"]]
+        if not all(math.isfinite(x) for x in losses) or not math.isfinite(record["final_psnr"] or math.nan):
+            raise AssertionError(f"overfit colmap: non-finite loss or PSNR in {record}")
+        if (len(s1), len(s2), len(evals)) != (steps, stage2_steps, steps // eval_every):
+            raise AssertionError(f"overfit colmap: {len(s1)} stage-1 steps, {len(s2)} stage-2 steps, {len(evals)} "
+                                 f"evaluations")
+        for stage, recs, per_step in ((1, s1, 1), (2, s2, 2)):
+            for i, r in enumerate(recs):
+                if (r["fwd"], r["bwd"]) != (per_step, per_step):
+                    raise AssertionError(f"overfit colmap: stage {stage} step {i} launched (fwd, bwd) "
+                                         f"({r['fwd']}, {r['bwd']}), expected {per_step} each")
+        for r in evals:
+            if (r["fwd"], r["bwd"]) != (r["views"], 0):
+                raise AssertionError(f"overfit colmap: an evaluation of {r['views']} views launched {r}")
+        if (record["backend"] != dev.type or record.get("card") != (card if dev.type == "cuda" else None)
+                or len(record["evals"]) != len(evals)):
+            raise AssertionError(f"overfit colmap: record {record}")
+        overflow = [r for r in s1 + s2 if r["live"] > r["slots"]]
+        if overflow:
+            log(f"overfit colmap: WARNING the pair cap dropped pairs in {len(overflow)} steps "
+                f"({max(r['live'] for r in overflow)} live > {overflow[0]['slots']} slots)")
+
+        # The scene's sparse anchor, and both kernels on the trained model's
+        # render of a training sample.
+        images, intrinsics, poses, points = oc.load_scene(scene, size, return_points=True)
+        held, _, train_set = oc.split_frames(len(images), 10)
+        sample = oc.sample_train(np.random.default_rng(1), len(images), train_set, 3, 12, 2)
+        batch = oc.make_batch(images, intrinsics, poses, [sample], 2, dev, points=points)
+        anchored = batch.sparse_anchor["mask"].reshape(2, -1).sum(1)
+        if not bool((anchored > 0).all()):
+            raise AssertionError(f"overfit colmap: anchor points in the two contexts {anchored.tolist()}")
+        hw, render = (size, size), oc.render_settings(size)
+        model.eval()
+        with torch.no_grad():
+            g = model.predict_gaussians(batch._replace(style_image=batch.context_images[:, 0]))
+            inputs = main_path_inputs(g, *batch[2:6], hw, render)
+            fwd = check_composite(inputs, render["max_per_tile"])
+            bwd = check_composite_bwd(inputs, render["max_per_tile"],
+                                      *mse_cotangents(inputs, render["max_per_tile"], batch.target_images))
+    del model, g
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ms1 = statistics.median(r["ms"] for r in s1[2:])
+    ms2 = statistics.median(r["ms"] for r in s2[1:])
+    view_ms = [r["ms"] / r["views"] for r in evals]
+    lives = [r["live"] for r in s1 + s2]
+    seconds = time.perf_counter() - t0
+    log(f"kernel composite_fwd, the overfit route's inputs ({int(inputs.live_pairs)} live pairs, the trained model "
+        f"on frames {sample}): agrees with the plain version, max err {fwd['max_abs_err']:.3g}; "
+        f"{fwd_windows_line(fwd)}")
+    log(f"kernel composite_bwd, the overfit route's inputs and MSE cotangents: agrees with the plain version, max "
+        f"err {bwd['max_abs_err']:.3g} ({bwd['max_rel_err']:.3g} of its column's largest gradient); "
+        f"{windows_line(bwd)}")
+    psnrs = ", ".join("%.3f dB at step %d" % (e["psnr"], e["step"]) for e in record["evals"])
+    log(f"overfit colmap: {frames} frames at {size}^2 built in {t_scene:.1f} s ({len(held)} held out, "
+        f"{record['held_out']} scored, anchor points {anchored.tolist()}); {model_name} width, f32, "
+        f"{n_params:,} parameters, pts3d bound 20, scratch init; stage 1: {ms1:.2f} ms a step (median of "
+        f"{len(s1) - 2} after 2), loss {s1[0]['loss']:.5f} -> {s1[-1]['loss']:.5f}, held-out PSNR {psnrs}; a "
+        f"held-out view {', '.join('%.2f' % ms for ms in view_ms)} ms (each evaluation); stage 2: {ms2:.2f} ms a step "
+        f"(median of {len(s2) - 1} after 1), loss {s2[0]['loss']:.5f} -> {s2[-1]['loss']:.5f}, style "
+        f"{record['stage2']['style_first']:.5f} -> {record['stage2']['style_last']:.5f}; live pairs "
+        f"{min(lives)}-{max(lives)} of {s1[0]['slots']} slots; peak {peak_gib:.2f} GiB ({resident_gib:.2f} of it "
+        f"resident before the phase); launches {launches}; "
+        f"phase in {seconds:.1f} s [{card}]")
+    return dict(stage1_ms=ms1, stage2_ms=ms2, view_ms=view_ms, losses=[r["loss"] for r in s1 + s2],
+                psnr=[e["psnr"] for e in record["evals"]], style=[record["stage2"]["style_first"],
+                                                                  record["stage2"]["style_last"]],
+                live_pairs=lives, pair_slots=s1[0]["slots"], peak_gib=peak_gib, resident_gib=resident_gib,
+                launches=launches, fwd=fwd,
+                bwd=bwd, n_params=n_params, seconds=seconds)
+
+
 def fwd_time_line(what, res, card):
     log(f"kernel composite_fwd, {what}: {res['ms']:.4f} ms on the device, {res['call_ms']:.4f} ms a call "
         f"(CUDA events, median of 20), plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.5f} ms "
@@ -3067,6 +3305,14 @@ def main():
     bench = bench_phase(card, dev)
     launches.update(bench.pop("launches"))
 
+    # -- the scene-overfit entry point: stage 1 from scratch, held-out
+    # evaluations and stage 2 on a synthetic COLMAP scene ------------------
+    overfit = overfit_phase(card, dev)
+    launches["overfit_colmap"] = overfit.pop("launches")
+    for kernel in ("composite_fwd", "composite_bwd"):
+        if not launches["overfit_colmap"][kernel]:
+            raise AssertionError(f"kernel {kernel} was not launched by overfit_colmap")
+
     # -- kernel times: device time from the profiler, after the paths'
     # timing, which the profiler's attached tracing would slow down ---------
     for what, res in (("dense cloud", res_dense), ("serving path's own inputs", res_main),
@@ -3079,7 +3325,8 @@ def main():
                       ("stage 1 + distill's first step", distill["fwd"]),
                       ("the adaattn + depth route's inputs", secondary["fwd"]),
                       ("the posed route's inputs", posed["fwd"]),
-                      ("the 128^2 train-step case's inputs", bench["fwd"])):
+                      ("the 128^2 train-step case's inputs", bench["fwd"]),
+                      ("the overfit route's inputs", overfit["fwd"])):
         fwd_time_line(what, composite_device_ms(res), card)
     for what, res in (("dense cloud", bwd_dense), ("training path's own inputs", bwd_main),
                       ("alignment's own inputs", infer["bwd"]), ("the fit's first step's inputs", fit["bwd"]),
@@ -3089,7 +3336,8 @@ def main():
                       ("stage 1 + distill's first step", distill["bwd"]),
                       ("the adaattn + depth route's inputs and cotangents", secondary["bwd"]),
                       ("the posed route's inputs and MSE cotangents", posed["bwd"]),
-                      ("the 128^2 train-step case's inputs and MSE cotangents", bench["bwd"])):
+                      ("the 128^2 train-step case's inputs and MSE cotangents", bench["bwd"]),
+                      ("the overfit route's inputs and MSE cotangents", overfit["bwd"])):
         bwd_time_line(what, composite_bwd_device_ms(res), card)
     # The 2-rank route's kernels were timed in its rank 0's process.
     fwd_time_line("rank 0's render of the 2-rank gloo step", distributed["fwd"], card)
@@ -3115,7 +3363,7 @@ def main():
 
     all_bwd = (bwd_dense, bwd_main, infer["bwd"], fit["bwd"], recovery_bwd, evaluation["bwd"],
                evaluation["recovery_bwd"], distill["bwd"], secondary["bwd"], distributed["bwd"], posed["bwd"],
-               bench["bwd"])
+               bench["bwd"], overfit["bwd"])
 
     kernels = [
         {
@@ -3130,7 +3378,7 @@ def main():
                                                                recovery_fwd, evaluation["fwd"],
                                                                evaluation["recovery_fwd"], distill["fwd"],
                                                                secondary["fwd"], distributed["fwd"], posed["fwd"],
-                                                               bench["fwd"])),
+                                                               bench["fwd"], overfit["fwd"])),
             **{k: res_main[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
             "windows": res_main["windows"],
@@ -3150,6 +3398,7 @@ def main():
             "dist_gloo_inputs": {**fwd_numbers(distributed["fwd"]), "max_abs_err": distributed["fwd"]["max_abs_err"]},
             "posed_inputs": {**fwd_numbers(posed["fwd"]), "max_abs_err": posed["fwd"]["max_abs_err"]},
             "bench_train_128_inputs": {**fwd_numbers(bench["fwd"]), "max_abs_err": bench["fwd"]["max_abs_err"]},
+            "overfit_colmap_inputs": {**fwd_numbers(overfit["fwd"]), "max_abs_err": overfit["fwd"]["max_abs_err"]},
         },
         {
             "name": "composite_bwd",
@@ -3178,6 +3427,7 @@ def main():
             "dist_gloo_inputs": bwd_numbers(distributed["bwd"]),
             "posed_inputs": bwd_numbers(posed["bwd"]),
             "bench_train_128_inputs": bwd_numbers(bench["bwd"]),
+            "overfit_colmap_inputs": bwd_numbers(overfit["bwd"]),
         },
     ]
     training = {f"stage{i}": {k: st[k] for k in ("ms", "examples_per_s", "peak_gib", "live_pairs")}
@@ -3197,10 +3447,11 @@ def main():
     distributed_summary = {k: v for k, v in distributed.items() if k not in ("fwd", "bwd")}
     posed_summary = {k: v for k, v in posed.items() if k not in ("fwd", "bwd")}
     bench_summary = {k: v for k, v in bench.items() if k not in ("fwd", "bwd")}
+    overfit_summary = {k: v for k, v in overfit.items() if k not in ("fwd", "bwd")}
     print(json.dumps({"kernels": kernels, "training": training, "inference": inference,
                       "evaluation": evaluation_summary, "fit": fit_summary, "distill": distill_summary,
                       "secondary": secondary_summary, "distributed": distributed_summary, "posed": posed_summary,
-                      "bench": bench_summary,
+                      "bench": bench_summary, "overfit_colmap": overfit_summary,
                       "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

@@ -10,7 +10,6 @@ from __future__ import annotations
 import json
 import os
 import statistics
-import subprocess
 import tempfile
 import time
 import warnings
@@ -21,20 +20,13 @@ from typing import Callable, Dict, List, Optional, Sequence
 import torch
 from torch import Tensor
 
+from ..device import card_line  # noqa: F401  (the measurement scripts' import of it)
+
 ROOT = Path(__file__).resolve().parents[2]
 
 
 def log(msg):
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    """The card's name and power limit, as nvidia-smi prints them."""
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, reps):

@@ -717,3 +717,50 @@ def test_serve_on_the_card_through_either_compositor(cuda, capsys):
     assert records["pallas"]["pair_slots"] == records["jnp"]["pair_slots"]
     assert records["pallas"]["launched"] > 0 and records["jnp"]["launched"] == 0
     assert records["pallas"]["mfu"] > 0 and records["pallas"]["card"]
+
+
+def test_overfit_colmap_on_the_card_through_either_compositor(cuda, tmp_path, monkeypatch):
+    """python -m styl3r_tpu_torch.train.overfit_colmap at tiny widths on the
+    card, on chip_smoke.py's synthetic COLMAP scene (16 frames at 64^2),
+    through the kernels and through the plain compositor from the same seed:
+    the first step's loss agrees within 1e-4 relative (f32, TF32 off; the
+    routes differ only in the compositor) and its live pairs are equal; the
+    kernel route launches each kernel once a stage-1 step and the forward
+    once a held-out view, the plain route nothing."""
+    import contextlib
+
+    import chip_smoke
+    from styl3r_tpu_torch.bench.common import plain_compositor
+    from styl3r_tpu_torch.train import overfit_colmap as oc
+
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", False)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    scene = chip_smoke.overfit_scene(tmp_path / "scene", n_frames=16, size=64, n_points=300)
+    make_train_step = oc.make_train_step
+    first, current = {}, {}
+
+    def recording(*args, **kwargs):
+        step = make_train_step(*args, **kwargs)
+
+        def call(state, batch, generator):
+            metrics = step(state, batch, generator)
+            first.setdefault(current["route"], (float(metrics["loss"]), int(metrics["live_pairs"])))
+            return metrics
+        return call
+
+    monkeypatch.setattr(oc, "make_train_step", recording)
+    launched, records = {}, {}
+    for route in ("kernels", "plain"):
+        current["route"] = route
+        before = (composite.launches, composite.backward_launches)
+        with plain_compositor() if route == "plain" else contextlib.nullcontext():
+            records[route] = oc.main(["--scene-dir", str(scene), "--model", "tiny", "--size", "64", "--steps", "2",
+                                      "--eval-every", "2", "--gap-min", "2", "--gap-max", "5",
+                                      "--output", str(tmp_path / f"{route}.json")])
+        launched[route] = (composite.launches - before[0], composite.backward_launches - before[1])
+    held_out = records["kernels"]["held_out"]
+    assert launched == {"kernels": (2 + held_out, 2), "plain": (0, 0)}
+    (loss_k, live_k), (loss_p, live_p) = first["kernels"], first["plain"]
+    assert np.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-4 * abs(loss_p)
+    assert live_k == live_p > 0
+    assert records["kernels"]["backend"] == "cuda" and records["kernels"]["card"]
