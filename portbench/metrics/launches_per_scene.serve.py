@@ -1,0 +1,8 @@
+"""Kernels launched a scene in the profiled slice of whole requests."""
+
+
+def read(record):
+    trace = record.get("trace")
+    if trace is None:
+        return None
+    return trace["kernels"] / (record["trace_calls"] * record["scenes"] / record["calls"])

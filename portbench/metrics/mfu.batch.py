@@ -1,0 +1,9 @@
+"""The whole forward's share of the card's dense bf16 peak over the
+window: portbench/counts/flops.py's FLOPs of a forward of the batch times
+the forwards, over the window's seconds, in %."""
+
+from portbench.readers import mfu
+
+
+def read(record):
+    return mfu(record)

@@ -1,0 +1,188 @@
+"""[Frozen copy of styl3r_tpu_torch/models/encoder.py, the benchmark's reference: it
+imports nothing of the program.]
+
+The encoders: unposed context images (+ a style image) -> 3D Gaussians
+(counterpart of styl3r_tpu/models/encoder.py).
+
+  * Styl3rEncoder, the production encoder (reference
+    `encoder_noposplat_multi_token_style.py:46-263`): view 0 goes through
+    head1 / gaussian_param_head, views 1.. are folded into the batch for
+    head2 / gaussian_param_head2, as in the JAX encoder;
+  * Styl3rTokenStyleEncoder2View, the 2-view token-style encoder
+    (`encoder_noposplat_token_style.py:150-283`);
+  * NoPoSplatMultiEncoder, the style-free N-view encoder
+    (`encoder_noposplat_multi.py:126-233`).
+
+Each module keeps the reference's key names (`downstream_head1`, ...).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn as nn
+from torch import Tensor
+
+from .gaussians import Gaussians
+from .adapter import d_sh, map_pdf_to_opacity, raw_gaussian_channels, unified_gaussian_adapter
+from .croco import MultiViewCrocoBackbone, TokenStylizer
+from .dpt import DPTGSHead, DPTGSSHHead, DPTPts3dHead
+from .precision import compute_in
+
+
+def _head_dims(enc_dim, dec_dim, dec_depth, head_feature_dim, head_layer_dims, patch_size, head_trunk_dtype):
+    """The DPT heads' shared arguments: hooks [0, l/2, 3l/4, l] over the
+    (dec_depth + 1)-level pyramid, whose level 0 is the encoder's tokens."""
+    l2 = dec_depth
+    return dict(
+        hook_dims=(enc_dim, dec_dim, dec_dim, dec_dim),
+        hooks=(0, l2 * 2 // 4, l2 * 3 // 4, l2),
+        feature_dim=head_feature_dim,
+        layer_dims=head_layer_dims,
+        patch_size=patch_size,
+        trunk_dtype=head_trunk_dtype,
+    )
+
+
+def _adapt(raw: Tensor, pts: Tensor, encoder: nn.Module, global_step: int, return_aux: bool):
+    """Raw (b, v, h, w, 1 + channels) head outputs and (b, v, h, w, 3) points
+    -> Gaussians through the unified adapter (+ the aux dict)."""
+    b, v, h, w, _ = raw.shape
+    densities = torch.sigmoid(raw[..., 0])
+    opacities = map_pdf_to_opacity(
+        densities, global_step, encoder.opacity_initial, encoder.opacity_final, encoder.opacity_warm_up,
+    )
+    gaussians = unified_gaussian_adapter(
+        means=pts.reshape(b, v * h * w, 3),
+        opacities=opacities.reshape(b, v * h * w),
+        raw=raw[..., 1:].reshape(b, v * h * w, -1),
+        sh_degree=encoder.sh_degree,
+    )
+    if return_aux:
+        return gaussians, {"pts3d": pts, "depths": pts[..., 2], "densities": densities}
+    return gaussians
+
+
+class Styl3rEncoder(nn.Module):
+    """Structure branch: multiview backbone -> pts3d heads + dpt_gs heads.
+    Appearance branch: token stylizer -> dpt_gs_sh head. The channel groups
+    concat into the unified Gaussian adapter.
+
+    `backbone_dtype` and `head_trunk_dtype` are compute dtypes, as in flax:
+    the weights stay f32 and are cast at use (models/precision.py), which
+    training needs. Serving may store them in those dtypes with
+    `cast_dtypes()`, as bench.py does."""
+
+    def __init__(
+        self,
+        sh_degree: int = 0,
+        patch_size: int = 16,
+        opacity_initial: float = 0.0,
+        opacity_final: float = 0.0,
+        opacity_warm_up: int = 1,
+        backbone_dtype: torch.dtype = torch.float32,
+        head_trunk_dtype: Optional[torch.dtype] = None,
+        enc_depth: int = 24,
+        dec_depth: int = 12,
+        enc_dim: int = 1024,
+        dec_dim: int = 768,
+        enc_heads: int = 16,
+        dec_heads: int = 12,
+        head_feature_dim: int = 256,
+        head_last_dim: int = 128,
+        head_layer_dims: tuple = (96, 192, 384, 768),
+        pts3d_bound: Optional[float] = None,
+    ):
+        super().__init__()
+        self.sh_degree = sh_degree
+        self.opacity_initial = opacity_initial
+        self.opacity_final = opacity_final
+        self.opacity_warm_up = opacity_warm_up
+        self.backbone_dtype = backbone_dtype
+        self.head_trunk_dtype = head_trunk_dtype
+        dims = dict(
+            enc_depth=enc_depth, dec_depth=dec_depth, enc_dim=enc_dim,
+            dec_dim=dec_dim, enc_heads=enc_heads, dec_heads=dec_heads,
+        )
+        self.backbone = MultiViewCrocoBackbone(patch_size=patch_size, **dims)
+        self.token_stylizer = TokenStylizer(patch_size=patch_size, **dims)
+        head_dims = _head_dims(
+            enc_dim, dec_dim, dec_depth, head_feature_dim, head_layer_dims, patch_size, head_trunk_dtype
+        )
+        self.downstream_head1 = DPTPts3dHead(last_dim=head_last_dim, pts3d_bound=pts3d_bound, **head_dims)
+        self.downstream_head2 = DPTPts3dHead(last_dim=head_last_dim, pts3d_bound=pts3d_bound, **head_dims)
+        structure_channels = 1 + raw_gaussian_channels(sh_degree) - 3 * d_sh(sh_degree)
+        self.gaussian_param_head = DPTGSHead(out_channels=structure_channels, **head_dims)
+        self.gaussian_param_head2 = DPTGSHead(out_channels=structure_channels, **head_dims)
+        self.gaussian_appearance_head = DPTGSSHHead(out_channels=3 * d_sh(sh_degree), **head_dims)
+
+    def heads(self):
+        return (
+            self.downstream_head1, self.downstream_head2, self.gaussian_param_head,
+            self.gaussian_param_head2, self.gaussian_appearance_head,
+        )
+
+    def cast_dtypes(self) -> None:
+        """Store the backbone, the stylizer and the DPT trunks in their
+        compute dtypes (serving only: training keeps f32 weights)."""
+        self.backbone.to(self.backbone_dtype)
+        self.token_stylizer.to(self.backbone_dtype)
+        if self.head_trunk_dtype is not None:
+            for head in self.heads():
+                head.cast_trunk(self.head_trunk_dtype)
+
+    def forward(
+        self,
+        context_images: Tensor,
+        context_intrinsics: Tensor,
+        style_image: Tensor,
+        global_step: int = 0,
+        return_aux: bool = False,
+        transpose_maps: bool = False,
+        generator: Optional[torch.Generator] = None,
+        distill_only: bool = False,
+    ) -> Gaussians | Tuple[Gaussians, Dict[str, Tensor]] | Dict[str, Tensor]:
+        """context_images: (b, v, h, w, 3) in [-1, 1]; context_intrinsics:
+        (b, v, 3, 3); style_image: (b, hs, ws, 3) in [-1, 1].
+        transpose_maps: portrait mode; the dense maps are transposed back
+        (h/w swap) before the adapter. generator: the dropout masks' source
+        in training mode. Returns Gaussians with g = v*h*w.
+
+        distill_only (stage-0 distillation): stop after the point maps and
+        return {"pts3d", "depths"}. The JAX step runs the whole encoder and
+        XLA drops the stylizer and the gs heads, which its loss does not
+        read; here they are not run."""
+        b, v, h, w, _ = context_images.shape
+
+        with compute_in(self.backbone_dtype, self.backbone.dtype, context_images.device.type):
+            enc_feat, enc_pos, dec_feat = self.backbone(context_images, context_intrinsics)
+
+        dec0 = [t[:, 0].float() for t in dec_feat]
+        decr = [t[:, 1:].reshape(b * (v - 1), *t.shape[2:]).float() for t in dec_feat]
+
+        pts0 = self.downstream_head1(dec0, (h, w))
+        ptsr = self.downstream_head2(decr, (h, w)).reshape(b, v - 1, h, w, 3)
+        pts_all = torch.cat([pts0[:, None], ptsr], dim=1)  # (b, v, h, w, 3)
+        if distill_only:
+            pts = pts_all.transpose(2, 3) if transpose_maps else pts_all
+            return {"pts3d": pts, "depths": pts[..., 2]}
+
+        with compute_in(self.backbone_dtype, self.backbone.dtype, context_images.device.type):
+            sty_feat = self.token_stylizer(style_image, enc_feat, enc_pos)
+
+        imgs = context_images.float()
+        gs0 = self.gaussian_param_head(dec0, imgs[:, 0], (h, w), generator)
+        gsr = self.gaussian_param_head2(
+            decr, imgs[:, 1:].reshape(b * (v - 1), h, w, 3), (h, w), generator
+        )
+        gs_struct = torch.cat([gs0[:, None], gsr.reshape(b, v - 1, h, w, -1)], dim=1)
+
+        sty_flat = [t.reshape(b * v, *t.shape[2:]).float() for t in sty_feat]
+        gs_appear = self.gaussian_appearance_head(sty_flat, (h, w), generator).reshape(b, v, h, w, -1)
+
+        raw = torch.cat([gs_struct, gs_appear], dim=-1)
+        if transpose_maps:
+            pts_all = pts_all.transpose(2, 3)
+            raw = raw.transpose(2, 3)
+        return _adapt(raw, pts_all, self, global_step, return_aux)

@@ -1,0 +1,170 @@
+"""[Frozen copy of styl3r_tpu_torch/models/vit.py, the benchmark's reference: it
+imports nothing of the program.]
+
+CroCo/DUSt3R ViT building blocks (counterpart of styl3r_tpu/models/vit.py;
+reference `src/model/encoder/backbone/croco/blocks.py`).
+
+Module and parameter names follow the reference's torch module tree, so a
+state dict carries the reference's key names. LayerNorm eps is 1e-6, GELU is
+the exact (erf) form and qkv has a bias.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+from torch import Tensor
+
+from .attention import dot_product_attention
+from .rope import apply_rope2d
+
+
+def layer_norm(dim: int) -> nn.LayerNorm:
+    return nn.LayerNorm(dim, eps=1e-6)
+
+
+class Mlp(nn.Module):
+    """fc1 -> GELU -> fc2."""
+
+    def __init__(self, dim: int, hidden_dim: int, out_dim: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden_dim)
+        self.fc2 = nn.Linear(hidden_dim, out_dim)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return self.fc2(F.gelu(self.fc1(x)))
+
+
+class Attention(nn.Module):
+    """Self-attention with optional RoPE2D on q/k. The head width is fixed at
+    construction and `num_heads` counts the heads this module computes: all
+    of them, or this rank's under tensor parallelism (parallel/tp.py), where
+    qkv's rows hold [q | k | v] of those heads and proj takes their width."""
+
+    def __init__(self, dim: int, num_heads: int, rope_base: Optional[float] = None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.rope_base = rope_base
+        self.qkv = nn.Linear(dim, dim * 3)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(self, x: Tensor, pos: Optional[Tensor]) -> Tensor:
+        b, n, _ = x.shape
+        q, k, v = self.qkv(x).reshape(b, n, 3, self.num_heads, self.head_dim).unbind(2)
+        if self.rope_base is not None:
+            q = apply_rope2d(q, pos, self.rope_base)
+            k = apply_rope2d(k, pos, self.rope_base)
+        out = dot_product_attention(q, k, v, scale=self.head_dim**-0.5)
+        return self.proj(out.reshape(b, n, self.num_heads * self.head_dim))
+
+
+class CrossAttention(nn.Module):
+    """Cross-attention with optional RoPE2D on q/k; heads as in Attention."""
+
+    def __init__(self, dim: int, num_heads: int, rope_base: Optional[float] = None):
+        super().__init__()
+        self.num_heads = num_heads
+        self.head_dim = dim // num_heads
+        self.rope_base = rope_base
+        self.projq = nn.Linear(dim, dim)
+        self.projk = nn.Linear(dim, dim)
+        self.projv = nn.Linear(dim, dim)
+        self.proj = nn.Linear(dim, dim)
+
+    def forward(
+        self,
+        query: Tensor,
+        key: Tensor,
+        value: Tensor,
+        qpos: Optional[Tensor],
+        kpos: Optional[Tensor],
+    ) -> Tensor:
+        b, nq, _ = query.shape
+        heads, head_dim = self.num_heads, self.head_dim
+        q = self.projq(query).reshape(b, nq, heads, head_dim)
+        k = self.projk(key).reshape(b, key.shape[1], heads, head_dim)
+        v = self.projv(value).reshape(b, value.shape[1], heads, head_dim)
+        if self.rope_base is not None:
+            if qpos is not None:
+                q = apply_rope2d(q, qpos, self.rope_base)
+            if kpos is not None:
+                k = apply_rope2d(k, kpos, self.rope_base)
+        out = dot_product_attention(q, k, v, scale=head_dim**-0.5)
+        return self.proj(out.reshape(b, nq, heads * head_dim))
+
+
+class Block(nn.Module):
+    """Pre-norm encoder block: x + attn(ln(x)), x + mlp(ln(x))."""
+
+    def __init__(
+        self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+        rope_base: Optional[float] = None,
+    ):
+        super().__init__()
+        self.norm1 = layer_norm(dim)
+        self.attn = Attention(dim, num_heads, rope_base)
+        self.norm2 = layer_norm(dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+
+    def forward(self, x: Tensor, pos: Optional[Tensor]) -> Tensor:
+        x = x + self.attn(self.norm1(x), pos)
+        return x + self.mlp(self.norm2(x))
+
+
+class DecoderBlock(nn.Module):
+    """Pre-norm decoder block: self-attn + cross-attn over the layer-normed
+    memory y (norm_y) + MLP."""
+
+    def __init__(
+        self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
+        rope_base: Optional[float] = None,
+    ):
+        super().__init__()
+        self.norm1 = layer_norm(dim)
+        self.attn = Attention(dim, num_heads, rope_base)
+        self.cross_attn = CrossAttention(dim, num_heads, rope_base)
+        self.norm2 = layer_norm(dim)
+        self.norm3 = layer_norm(dim)
+        self.norm_y = layer_norm(dim)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+
+    def forward(
+        self, x: Tensor, y: Tensor, xpos: Optional[Tensor], ypos: Optional[Tensor]
+    ) -> Tuple[Tensor, Tensor]:
+        x = x + self.attn(self.norm1(x), xpos)
+        y_ = self.norm_y(y)
+        x = x + self.cross_attn(self.norm2(x), y_, y_, xpos, ypos)
+        x = x + self.mlp(self.norm3(x))
+        return x, y
+
+
+def token_grid_positions(h: int, w: int, device=None) -> Tensor:
+    """Integer (y, x) positions of an h*w token grid, row-major, (h*w, 2)."""
+    ys = torch.arange(h, dtype=torch.int32, device=device)
+    xs = torch.arange(w, dtype=torch.int32, device=device)
+    grid = torch.stack(torch.meshgrid(ys, xs, indexing="ij"), dim=-1)
+    return grid.reshape(h * w, 2)
+
+
+class PatchEmbed(nn.Module):
+    """p x p conv patchifier over NHWC images; returns tokens (b, n, dim) and
+    their (y, x) positions (b, n, 2)."""
+
+    def __init__(self, patch_size: int = 16, embed_dim: int = 1024):
+        super().__init__()
+        self.patch_size = patch_size
+        self.proj = nn.Conv2d(3, embed_dim, patch_size, stride=patch_size)
+
+    def forward(self, images: Tensor) -> Tuple[Tensor, Tensor]:
+        b, h, w, _ = images.shape
+        p = self.patch_size
+        if h % p or w % p:
+            raise ValueError(f"image size {(h, w)} not divisible by patch size {p}")
+        x = self.proj(images.permute(0, 3, 1, 2))  # (b, dim, h/p, w/p)
+        tokens = x.flatten(2).transpose(1, 2)
+        pos = token_grid_positions(h // p, w // p, images.device)
+        return tokens, pos[None].expand(b, -1, -1)
