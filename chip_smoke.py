@@ -180,6 +180,7 @@ sys.path.insert(0, ROOT)
 from styl3r_tpu_torch.bench import batch as bench_batch  # noqa: E402
 from styl3r_tpu_torch.bench.common import plain_compositor  # noqa: E402,F401  (the phases' and scripts' plain route)
 from styl3r_tpu_torch.bench.timing import card_line, cuda_ms, kernel_device_ms  # noqa: E402,F401
+from styl3r_tpu_torch.utils import trace  # noqa: E402
 PEAK_F32_FLOPS = 67e12  # H100 SXM FP32 (non-tensor) peak, 700 W
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 TOL = 1e-5  # kernel vs plain, f32 values of order 1: rounding only
@@ -201,6 +202,19 @@ COMPOSITE_OPS_PER_EVAL = 25
 # in its second pass; that is its own cost and not in the bound.
 COMPOSITE_BWD_OPS_PER_EVAL = 76
 
+
+
+def kernel_launches():
+    """(forward, backward) compositor kernel launches since trace.reset():
+    utils/trace.py's counters, in which a backward call launches its two
+    phases."""
+    c = trace.counters()
+    return c["composite_fwd_launches"], c["composite_bwd_launches"]
+
+
+def launch_record():
+    fwd, bwd = kernel_launches()
+    return {"composite_fwd": fwd, "composite_bwd": bwd}
 
 def log(msg):
     print(msg, flush=True)
@@ -632,16 +646,16 @@ def inference_phase(model, card, steps=100, frames=60, size=256):
     with tempfile.TemporaryDirectory() as out_dir:
         cli.align_target_poses, pipeline.InferencePipeline.render = record_align, record_render
         try:
-            composite.launches = composite.backward_launches = 0
+            trace.reset()
             metrics = cli.run_scene_inference(
                 model, images, intrinsics, extrinsics, context, targets, style, out_dir, image_shape=hw,
                 align_pose_steps=steps, video_frames=frames, benchmarker=bench,
             )
             torch.cuda.synchronize()
-            launches = {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}
+            launches = launch_record()
         finally:
             cli.align_target_poses, pipeline.InferencePipeline.render = real_align, real_render
-        expected = (steps + 2 + -(-frames // 10), steps)
+        expected = (steps + 2 + -(-frames // 10), 2 * steps)
         if (launches["composite_fwd"], launches["composite_bwd"]) != expected:
             raise AssertionError(f"inference path: compositor launches (fwd, bwd) "
                                  f"{launches['composite_fwd'], launches['composite_bwd']}, expected {expected}")
@@ -731,7 +745,7 @@ def four_view_phase(model, card, hw, render_kwargs):
     batch = example_batch(7, model.device, v=4)
     g = 4 * hw[0] * hw[1]
     times = []
-    composite.launches = composite.backward_launches = 0
+    trace.reset()
     for i in range(2):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         with torch.no_grad():
@@ -744,10 +758,10 @@ def four_view_phase(model, card, hw, render_kwargs):
         if not finite or out.color.shape != (1, 1, *hw, 3) or gaussians.means.shape != (1, g, 3):
             raise AssertionError("4-view predict: non-finite or misshapen output")
         live, slots = int(out.live_pairs.max()), int(out.pair_slots.min())
-        if composite.launches != i + 1 or not 0 < live <= slots:
-            raise AssertionError(f"4-view predict: {composite.launches} launches after {i + 1} calls, live pairs "
+        if kernel_launches()[0] != i + 1 or not 0 < live <= slots:
+            raise AssertionError(f"4-view predict: {kernel_launches()[0]} launches after {i + 1} calls, live pairs "
                                  f"{live} of {slots} slots")
-    launches = {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}
+    launches = launch_record()
     log(f"4-view predict + render at {hw[0]}x{hw[1]}: {times[0]:.2f} ms the first call at these shapes, "
         f"{times[1]:.2f} ms the second; {g} Gaussians, live pairs {live} [{card}]")
     return dict(ms=times, gaussians=g, live_pairs=live, launches=launches)
@@ -810,15 +824,15 @@ def recovery_phase(card, device="cuda", g=131072, steps=60, hw=(256, 256)):
     if not max(grad_err.values()) <= 1e-3:
         raise AssertionError(f"pose recovery: camera-delta gradients differ from the plain versions: {grad_err}")
     t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    composite.launches = composite.backward_launches = 0
+    trace.reset()
     t0.record()
     aligned = align_target_poses(gaussians, start, k, near, far, target.color, hw, steps=steps,
                                  rot_lr=5e-3, trans_lr=5e-3, **render_kwargs)
     t1.record()
     torch.cuda.synchronize()
-    launches = {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}
-    if (launches["composite_fwd"], launches["composite_bwd"]) != (steps, steps):
-        raise AssertionError(f"pose recovery: compositor launches {launches}, expected {steps} of each")
+    launches = launch_record()
+    if (launches["composite_fwd"], launches["composite_bwd"]) != (steps, 2 * steps):
+        raise AssertionError(f"pose recovery: compositor launches {launches}, expected {steps} calls of each")
     before = float((start - true_ext).abs().max())
     after = float((aligned - true_ext).abs().max())
     if not after < 0.3 * before:
@@ -890,15 +904,15 @@ def refine_recovery_phase(card, device="cuda", g=131072, steps=200, hw=(256, 256
                                   **render_kwargs)
     start = se3_exp(torch.tensor(REFINE_PERTURBATION, device=dev))
     t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    composite.launches = composite.backward_launches = 0
+    trace.reset()
     t0.record()
     refined = refine_pose_photometric(gaussians, start, k, target.color[0, 0], near, far, steps=steps,
                                       **render_kwargs)
     t1.record()
     torch.cuda.synchronize()
-    launches = {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}
-    if (launches["composite_fwd"], launches["composite_bwd"]) != (steps, steps):
-        raise AssertionError(f"refinement recovery: compositor launches {launches}, expected {steps} of each")
+    launches = launch_record()
+    if (launches["composite_fwd"], launches["composite_bwd"]) != (steps, 2 * steps):
+        raise AssertionError(f"refinement recovery: compositor launches {launches}, expected {steps} calls of each")
     r0, _ = pose_error_deg(start.cpu().numpy(), np.eye(4))
     r1, _ = pose_error_deg(refined.cpu().numpy(), np.eye(4))
     t_err = float(refined[:3, 3].norm())
@@ -972,29 +986,29 @@ def evaluation_phase(card, scenes=2, align_steps=100, refine_steps=200, hw=(256,
             return real_step(self, batch, scene, overlap)
 
         def record_align(*args, **kwargs):
-            before = (composite.launches, composite.backward_launches)
+            before = kernel_launches()
             ext = real_align(*args, **kwargs)
-            align_launches.append((composite.launches - before[0], composite.backward_launches - before[1]))
+            align_launches.append((kernel_launches()[0] - before[0], kernel_launches()[1] - before[1]))
             return ext
 
         harness.EvalHarness.test_step, harness.align_target_poses = record_step, record_align
         try:
             torch.cuda.reset_peak_memory_stats()  # peak_memory.json: evaluate's own peak
-            composite.launches = composite.backward_launches = 0
+            trace.reset()
             t0 = time.perf_counter()
             means = evaluate.main([*data, f"test.output_path={out}", "test.align_pose=true",
                                    f"test.pose_align_steps={align_steps}", "test.save_image=true"])
             torch.cuda.synchronize()
             eval_s = time.perf_counter() - t0
-            eval_launches = {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}
+            eval_launches = launch_record()
         finally:
             harness.EvalHarness.test_step, harness.align_target_poses = real_step, real_align
         gc.collect()
         torch.cuda.empty_cache()
-        if align_launches != [(align_steps, align_steps)] * scenes:
+        if align_launches != [(align_steps, 2 * align_steps)] * scenes:
             raise AssertionError(f"evaluate: each alignment's (fwd, bwd) launches {align_launches}, expected "
                                  f"{align_steps} of each a scene")
-        expected = (scenes * (align_steps + 1), scenes * align_steps)
+        expected = (scenes * (align_steps + 1), 2 * scenes * align_steps)
         if (eval_launches["composite_fwd"], eval_launches["composite_bwd"]) != expected:
             raise AssertionError(f"evaluate: compositor launches {eval_launches}, expected (fwd, bwd) {expected}")
         with open(os.path.join(out, "scores.json")) as f:
@@ -1045,7 +1059,7 @@ def evaluation_phase(card, scenes=2, align_steps=100, refine_steps=200, hw=(256,
         real_refine = pose.refine_pose_photometric
 
         def record_refine(*args, steps, **kwargs):
-            before = (composite.launches, composite.backward_launches)
+            before = kernel_launches()
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             refined = real_refine(*args, steps=steps, **kwargs)
@@ -1053,26 +1067,26 @@ def evaluation_phase(card, scenes=2, align_steps=100, refine_steps=200, hw=(256,
             torch.cuda.synchronize()
             refinements.append(dict(
                 args=args, kwargs=kwargs, ms_per_step=start.elapsed_time(end) / steps,
-                launches=(composite.launches - before[0], composite.backward_launches - before[1]),
+                launches=(kernel_launches()[0] - before[0], kernel_launches()[1] - before[1]),
             ))
             return refined
 
         pose.refine_pose_photometric = record_refine
         try:
-            composite.launches = composite.backward_launches = 0
+            trace.reset()
             t0 = time.perf_counter()
             aucs = eval_pose.main([*data, "--refine-steps", str(refine_steps)])
             torch.cuda.synchronize()
             pose_s = time.perf_counter() - t0
-            pose_launches = {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}
+            pose_launches = launch_record()
         finally:
             pose.refine_pose_photometric = real_refine
         if sorted(aucs) != [5, 10, 20] or not all(math.isfinite(v) for v in aucs.values()):
             raise AssertionError(f"eval_pose: AUCs {aucs}")
-        if [r["launches"] for r in refinements] != [(refine_steps, refine_steps)] * scenes:
+        if [r["launches"] for r in refinements] != [(refine_steps, 2 * refine_steps)] * scenes:
             raise AssertionError(f"eval_pose: each refinement's (fwd, bwd) launches "
-                                 f"{[r['launches'] for r in refinements]}, expected {refine_steps} of each a scene")
-        if (pose_launches["composite_fwd"], pose_launches["composite_bwd"]) != (scenes * refine_steps,) * 2:
+                                 f"{[r['launches'] for r in refinements]}, expected {refine_steps} calls of each a scene")
+        if (pose_launches["composite_fwd"], pose_launches["composite_bwd"]) != (scenes * refine_steps, 2 * scenes * refine_steps):
             raise AssertionError(f"eval_pose: compositor launches {pose_launches}")
         refine_ms = [r["ms_per_step"] for r in refinements]
         log(f"eval_pose: {scenes} scenes, PnP + {refine_steps} refinement steps each, in {pose_s:.1f} s with the "
@@ -1158,10 +1172,10 @@ def train_phase(model, batch, hw, render_kwargs, card, stage, reps=5, warm=2):
     state = TrainState()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    composite.launches = composite.backward_launches = 0
+    trace.reset()
     times, losses, lives = [], [], []
     for i in range(warm + reps):
-        fwd0, bwd0 = composite.launches, composite.backward_launches
+        fwd0, bwd0 = kernel_launches()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         metrics = step(state, batch, generator)
@@ -1178,9 +1192,9 @@ def train_phase(model, batch, hw, render_kwargs, card, stage, reps=5, warm=2):
             raise AssertionError(f"{where}: loss {loss}, grad norm {gnorm}")
         if live > slots:
             raise AssertionError(f"{where}: the pair cap dropped pairs ({live} live > {slots} slots)")
-        launched = (composite.launches - fwd0, composite.backward_launches - bwd0)
-        if launched != (per_step, per_step):
-            raise AssertionError(f"{where}: compositor launches (fwd, bwd) {launched}, expected {per_step} each")
+        launched = (kernel_launches()[0] - fwd0, kernel_launches()[1] - bwd0)
+        if launched != (per_step, 2 * per_step):
+            raise AssertionError(f"{where}: compositor launches (fwd, bwd) {launched}, expected {per_step} calls of each")
         if stage == 1:
             # Held at the warm steps, whose render holds ~81 k live pairs:
             # later, Adam's first updates on random weights move the geometry
@@ -1205,9 +1219,9 @@ def train_phase(model, batch, hw, render_kwargs, card, stage, reps=5, warm=2):
     log(f"training stage {stage}: {ms:.2f} ms/step, {1e3 * b / ms:.3f} examples/s (median of {reps}, b = {b}), "
         f"peak memory {peak_gb:.2f} GiB; loss {losses[0]:.5f} -> {losses[-1]:.5f}, grad norm {gnorm:.4g}, "
         f"live pairs {lives[0]} at the first step, {min(timed_lives)}-{max(timed_lives)} in the timed steps, "
-        f"of {slots} slots; launches fwd {composite.launches} bwd {composite.backward_launches} [{card}]")
-    return dict(ms=ms, examples_per_s=1e3 * b / ms, peak_gib=peak_gb, fwd=composite.launches,
-                bwd=composite.backward_launches, losses=losses, live_pairs=lives)
+        f"of {slots} slots; launches fwd {kernel_launches()[0]} bwd {kernel_launches()[1]} [{card}]")
+    return dict(ms=ms, examples_per_s=1e3 * b / ms, peak_gib=peak_gb, fwd=kernel_launches()[0],
+                bwd=kernel_launches()[1], losses=losses, live_pairs=lives)
 
 
 FIT_CONFIG = "configs/experiment/re10k_3view_style.yaml"
@@ -1425,9 +1439,9 @@ def fit_phase(card, batch_size=2, steps=4):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        composite.launches = composite.backward_launches = 0
+        trace.reset()
         state, probe, seconds, rec = run(whole, steps)
-        launches = {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}
+        launches = launch_record()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         train_rec, val_rec = rec["train"], rec["val"]
         losses = [r["loss"] for r in train_rec]
@@ -1437,7 +1451,7 @@ def fit_phase(card, batch_size=2, steps=4):
             raise AssertionError(f"fit: losses {losses}, {len(val_rec)} validations")
         # Each step renders twice (stylized and identity) and each validation
         # 4 times (targets, trajectory, projections, wobble).
-        expected = (2 * steps + 4 * (steps // 2), 2 * steps)
+        expected = (2 * steps + 4 * (steps // 2), 4 * steps)
         if (launches["composite_fwd"], launches["composite_bwd"]) != expected:
             raise AssertionError(f"fit: compositor launches {launches}, expected (fwd, bwd) {expected}")
         for name in ("val_comparison", "val_trajectory", "val_projections", "val_cameras", "val_camera_frustums"):
@@ -1503,12 +1517,12 @@ def fit_phase(card, batch_size=2, steps=4):
         part = os.path.join(tmp, "part")
         gc.collect()
         torch.cuda.empty_cache()
-        composite.launches = composite.backward_launches = 0
+        trace.reset()
         run(part, steps // 2)
         resume_ckpt = os.path.join(part, "checkpoints", f"step_{steps // 2}.pt")
         start_weights = checkpoint_weights(resume_ckpt)
         resumed, _, _, rec = run(part, steps, f"checkpointing.load={resume_ckpt}", "checkpointing.resume=true")
-        resume_launches = {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}
+        resume_launches = launch_record()
         part_rec = rec["train"]
         if resumed.step != steps or [r["step"] for r in part_rec] != list(range(1, steps + 1)):
             raise AssertionError(f"fit resume: {resumed.step} steps, logged {[r['step'] for r in part_rec]}")
@@ -1651,13 +1665,13 @@ def distill_phase(card, batch_size=2, steps=4, stage1_steps=3, hw=(256, 256)):
             gc.collect()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-            composite.launches = composite.backward_launches = 0
+            trace.reset()
             t0 = time.perf_counter()
             with teacher.attached(), kernels.attached():
                 state = train_main.main(args)
                 torch.cuda.synchronize()
             seconds = time.perf_counter() - t0
-            launches = {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}
+            launches = launch_record()
             rec = fit_metrics(out)
             train_rec = rec["train"]
             if state.step != max_steps or [r["step"] for r in train_rec] != list(range(1, max_steps + 1)):
@@ -1725,8 +1739,8 @@ def distill_phase(card, batch_size=2, steps=4, stage1_steps=3, hw=(256, 256)):
                    "checkpointing.every_n_train_steps=100")
         stage1 = summary(res1)
         train_rec = res1["rec"]["train"]
-        if (res1["launches"]["composite_fwd"], res1["launches"]["composite_bwd"]) != (stage1_steps, stage1_steps):
-            raise AssertionError(f"distill: stage 1 launches {res1['launches']}, expected {stage1_steps} each")
+        if (res1["launches"]["composite_fwd"], res1["launches"]["composite_bwd"]) != (stage1_steps, 2 * stage1_steps):
+            raise AssertionError(f"distill: stage 1 launches {res1['launches']}, expected {stage1_steps} calls of each")
         for r in train_rec:
             if not r["loss"] >= r["mse"] + r["distill"] - 1e-6 * abs(r["loss"]):
                 raise AssertionError(f"distill: stage 1's loss {r['loss']} lacks mse {r['mse']} + distill "
@@ -2005,13 +2019,13 @@ def secondary_phase(card, device="cuda", hw=256, resnet="resnet50", dino="dino_v
         return loss, torch.autograd.grad(loss, [x for x in leaves if x is not None]), out
 
     steps = 3
-    composite.launches = composite.backward_launches = 0
+    trace.reset()
     with torch.enable_grad():
         loss, grads, out = step()
         route_ms = cuda_ms(lambda: step(), steps - 1)
-    launches = {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}
-    if (launches["composite_fwd"], launches["composite_bwd"]) != (steps, steps):
-        raise AssertionError(f"adaattn + depth route: launches {launches}, expected {steps} of each")
+    launches = launch_record()
+    if (launches["composite_fwd"], launches["composite_bwd"]) != (steps, 2 * steps):
+        raise AssertionError(f"adaattn + depth route: launches {launches}, expected {steps} calls of each")
     if not math.isfinite(float(loss.detach())) or not all(bool(torch.isfinite(x).all()) and bool((x != 0).any()) for x in grads):
         raise AssertionError("adaattn + depth route: non-finite loss or a zero or non-finite gradient")
     live = int(out.live_pairs.max())
@@ -2130,15 +2144,15 @@ def posed_phase(model, card, hw, render_kwargs, seed=0, reps=5, warm=2):
         loss = ((out.color - batch.target_images) ** 2).mean()
         return loss, torch.autograd.grad(loss, (args["raw"], args["depths"])), out
 
-    composite.launches = composite.backward_launches = 0
+    trace.reset()
     with torch.enable_grad():
         for _ in range(warm):
             loss, grads, out = step()
         step_ms = cuda_ms(step, reps)
         adapter_ms = cuda_ms(lambda: adapter(args), reps)
-    launches = {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}
-    if (launches["composite_fwd"], launches["composite_bwd"]) != (warm + reps, warm + reps):
-        raise AssertionError(f"posed route: launches {launches}, expected {warm + reps} of each")
+    launches = launch_record()
+    if (launches["composite_fwd"], launches["composite_bwd"]) != (warm + reps, 2 * (warm + reps)):
+        raise AssertionError(f"posed route: launches {launches}, expected {warm + reps} calls of each")
     loss = float(loss.detach())
     if not math.isfinite(loss) or not all(bool(torch.isfinite(x).all()) and bool((x != 0).any()) for x in grads):
         raise AssertionError("posed route: non-finite loss or a zero or non-finite gradient")
@@ -2280,7 +2294,7 @@ def host_state(model):
     return {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
 
 
-def stage_step(model, stage, batch, hw, render_kwargs, data=None, reduce_clock=None):
+def stage_step(model, stage, batch, hw, render_kwargs, data=None):
     """One train step of `stage` (1: MSE; 2: style 10 + identity with VGG19 at
     random weights, stylizer-only; train_phase's) from the model's weights,
     the first update at the optimizer's full learning rate (no warm-up), with
@@ -2298,15 +2312,14 @@ def stage_step(model, stage, batch, hw, render_kwargs, data=None, reduce_clock=N
     dev = batch.context_images.device
     if stage == 1:
         optimizer = make_optimizer(model, warmup_steps=0)
-        step = make_train_step(model, optimizer, hw, stylized=False, data=data, reduce_clock=reduce_clock,
-                               **render_kwargs)
+        step = make_train_step(model, optimizer, hw, stylized=False, data=data, **render_kwargs)
     else:
         vgg = VGG19Features().to(dev)
         init_like_flax_(vgg, torch.Generator(dev).manual_seed(3))
         loss_fn = LossBundle(mse_weight=None, style_weight=10.0, identity=True, vgg19=vgg.requires_grad_(False))
         optimizer = make_stage2_optimizer(model, warmup_steps=0)
         step = make_train_step(model, optimizer, hw, loss_fn=loss_fn, stylized=True, identity_branch=True,
-                               data=data, reduce_clock=reduce_clock, **render_kwargs)
+                               data=data, **render_kwargs)
     model.zero_grad(set_to_none=True)
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
@@ -2433,7 +2446,7 @@ def nccl_fit_child(args):
     ckpt = os.path.join(out, "checkpoints", "final.pt")
     start = os.path.join(out, "start.pt")
     torch.cuda.reset_peak_memory_stats()
-    composite.launches = composite.backward_launches = 0
+    trace.reset()
     for port, max_steps, extra in ((args["ports"][0], steps // 2, ()),
                                    (args["ports"][1], steps, (f"checkpointing.load={start}",
                                                               "checkpointing.resume=true"))):
@@ -2447,8 +2460,7 @@ def nccl_fit_child(args):
     rec = fit_metrics(out)["train"]
     if [r["step"] for r in rec] != list(range(1, steps + 1)):
         raise AssertionError(f"nccl fit: logged steps {[r['step'] for r in rec]}")
-    return dict(start=start, final=ckpt, launches={"composite_fwd": composite.launches,
-                                                    "composite_bwd": composite.backward_launches},
+    return dict(start=start, final=ckpt, launches=launch_record(),
                 step_ms=[r["step_ms"] for r in rec], allreduce_ms=[r["allreduce_ms"] for r in rec],
                 allreduce_bytes=[r["allreduce_bytes"] for r in rec], losses=[r["loss"] for r in rec],
                 live_pairs=[r["live_pairs"] for r in rec], peak_gib=torch.cuda.max_memory_allocated() / 2**30)
@@ -2467,7 +2479,6 @@ def gloo_step_child(args):
     from styl3r_tpu_torch.models.dpt import shard_dropout_
     from styl3r_tpu_torch.ops.rasterizer import composite
     from styl3r_tpu_torch.parallel import DataGroup, shard_batch
-    from styl3r_tpu_torch.train.trainer import StepClock
 
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     dev = torch.device("cuda", 0)
@@ -2483,15 +2494,15 @@ def gloo_step_child(args):
         for stage in (1, 2):
             model.load_state_dict(scratch)
             shard_dropout_(model, rank, world)
-            clock = StepClock(dev)
             gc.collect()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
-            composite.launches = composite.backward_launches = 0
-            with probe.attached() if stage == 1 else contextlib.nullcontext():
-                metrics, ms, grads = stage_step(model, stage, rows, hw, TRAIN_RENDER, DataGroup(rank, world), clock)
-            res = dict(metrics=metrics, ms=ms, allreduce_ms=clock.ms(), peak_gib=torch.cuda.max_memory_allocated() / 2**30,
-                       launches={"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches})
+            trace.reset()
+            with probe.attached() if stage == 1 else contextlib.nullcontext(), trace.enabled():
+                metrics, ms, grads = stage_step(model, stage, rows, hw, TRAIN_RENDER, DataGroup(rank, world))
+            allreduce_ms = trace.drain()["allreduce"][0]
+            res = dict(metrics=metrics, ms=ms, allreduce_ms=allreduce_ms, peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                       launches=launch_record())
             # Every rank holds the same weights: the sums of each tensor, gathered.
             sums = torch.stack([p.detach().double().sum() for p in model.parameters()]).cpu()
             every = [torch.zeros_like(sums) for _ in range(world)]
@@ -2559,9 +2570,9 @@ def tp_step_child(args):
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        composite.launches = composite.backward_launches = 0
+        trace.reset()
         metrics, ms, grads = stage_step(model, 1, batch_sharding_2d(batch, mesh), hw, TRAIN_RENDER, data_group_2d(mesh))
-        launches = {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}
+        launches = launch_record()
         peak = torch.cuda.max_memory_allocated() / 2**30
         after = {k: v.detach().to("cpu", copy=True) for k, v in gathered_state_dict(model).items()}
         agreement = dict(unsharded=bounded("tp (1, 1) against the unsharded step",
@@ -2668,8 +2679,8 @@ def distributed_phase(card, batch_size=2, steps=4):
             raise AssertionError(f"distributed nccl fit: the step-{steps // 2} checkpoint {ckpt} from the "
                                  f"non-distributed fit's (bound {DIST_CKPT_TOL}), losses {fit['loss_rel_err']} from "
                                  f"its (bound {RESUME_TOL} to step {steps // 2})")
-        if fit["launches"] != {"composite_fwd": steps, "composite_bwd": steps}:
-            raise AssertionError(f"distributed nccl fit: launches {fit['launches']}, expected {steps} each")
+        if fit["launches"] != {"composite_fwd": steps, "composite_bwd": 2 * steps}:
+            raise AssertionError(f"distributed nccl fit: launches {fit['launches']}, expected {steps} calls of each")
         log(f"distributed nccl fit: train.main on re10k_2view_nvs.yaml under torchrun's environment at world size 1 "
             f"(NCCL), b = {batch_size}, {steps // 2} steps and a resume to step {steps} in {nccl_s:.1f} s (the "
             f"non-distributed fit {ref_s:.1f} s): {statistics.median(fit['step_ms'][1:]):.2f} ms/step (median of "
@@ -2696,7 +2707,7 @@ def distributed_phase(card, batch_size=2, steps=4):
                 res = rank[stage]
                 if not res["ranks_equal"]:
                     raise AssertionError(f"distributed gloo {stage}: the ranks' weights differ after the step")
-                if res["launches"] != {"composite_fwd": per_step, "composite_bwd": per_step}:
+                if res["launches"] != {"composite_fwd": per_step, "composite_bwd": 2 * per_step}:
                     raise AssertionError(f"distributed gloo {stage} rank {r}: launches {res['launches']}")
             res, other = gloo[0][stage], gloo[1][stage]
             log(f"distributed gloo {stage}: 2 ranks sharing the card, b = 1 a rank of a global 2: "
@@ -2726,7 +2737,7 @@ def distributed_phase(card, batch_size=2, steps=4):
         t0 = time.perf_counter()
         tp, = run_ranks("tp_step", 1, {}, tmp)
         tp_s = time.perf_counter() - t0
-        if tp["launches"] != {"composite_fwd": 1, "composite_bwd": 1} or not tp["dtensor_params"]:
+        if tp["launches"] != {"composite_fwd": 1, "composite_bwd": 2} or not tp["dtensor_params"]:
             raise AssertionError(f"distributed tp: launches {tp['launches']}, {tp['dtensor_params']} DTensor params")
         log(f"distributed tp: stage-1 step of the full-width model on a (1, 1) (data, model) mesh over NCCL, "
             f"{tp['dtensor_params']} of {tp['params']} parameters DTensors, b = 2: {tp['ms']:.2f} ms (unsharded "
@@ -2763,9 +2774,9 @@ def bench_phase(card, dev):
     launches = {}
 
     def counted(path, run):
-        composite.launches = composite.backward_launches = 0
+        trace.reset()
         out = run()
-        launches[path] = {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}
+        launches[path] = launch_record()
         return out
 
     model = serving_model(dev, {})
@@ -2941,14 +2952,14 @@ def overfit_phase(card, dev, frames=48, size=256, steps=20, eval_every=10, stage
 
     def timed(fn, on_done):
         def call(*args, **kwargs):
-            fwd0, bwd0 = composite.launches, composite.backward_launches
+            fwd0, bwd0 = kernel_launches()
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             start.record()
             out = fn(*args, **kwargs)
             end.record()
             end.synchronize()
-            on_done(out, args, dict(ms=start.elapsed_time(end), fwd=composite.launches - fwd0,
-                                    bwd=composite.backward_launches - bwd0))
+            on_done(out, args, dict(ms=start.elapsed_time(end), fwd=kernel_launches()[0] - fwd0,
+                                    bwd=kernel_launches()[1] - bwd0))
             return out
         return call
 
@@ -2978,12 +2989,12 @@ def overfit_phase(card, dev, frames=48, size=256, steps=20, eval_every=10, stage
                 "--eval-every", str(eval_every), "--stage2-steps", str(stage2_steps), "--output", str(output)]
         torch.cuda.reset_peak_memory_stats()
         oc.make_train_step, oc.eval_psnr = timed_make_train_step, timed(eval_psnr, eval_done)
-        composite.launches = composite.backward_launches = 0
+        trace.reset()
         try:
             record = oc.main(argv, model=model)
         finally:
             oc.make_train_step, oc.eval_psnr = make_train_step, eval_psnr
-        launches = {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}
+        launches = launch_record()
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         if json.loads(output.read_text()) != record:
             raise AssertionError("overfit colmap: the record written differs from the one returned")
@@ -2998,9 +3009,9 @@ def overfit_phase(card, dev, frames=48, size=256, steps=20, eval_every=10, stage
                                  f"evaluations")
         for stage, recs, per_step in ((1, s1, 1), (2, s2, 2)):
             for i, r in enumerate(recs):
-                if (r["fwd"], r["bwd"]) != (per_step, per_step):
+                if (r["fwd"], r["bwd"]) != (per_step, 2 * per_step):
                     raise AssertionError(f"overfit colmap: stage {stage} step {i} launched (fwd, bwd) "
-                                         f"({r['fwd']}, {r['bwd']}), expected {per_step} each")
+                                         f"({r['fwd']}, {r['bwd']}), expected {per_step} calls of each")
         for r in evals:
             if (r["fwd"], r["bwd"]) != (r["views"], 0):
                 raise AssertionError(f"overfit colmap: an evaluation of {r['views']} views launched {r}")
@@ -3156,7 +3167,7 @@ def main():
     if n_params != 1_043_732_697:
         raise AssertionError(f"parameter count {n_params} is not the full-width model's")
 
-    composite.launches = composite.backward_launches = 0
+    trace.reset()
     with torch.inference_mode():
         for i, seed in enumerate((0, 1, 2)):
             batch = example_batch(seed, dev)
@@ -3168,11 +3179,11 @@ def main():
                 raise AssertionError(f"scene {seed}: non-finite or misshapen output")
             if not 0 < live <= slots:
                 raise AssertionError(f"scene {seed}: live pairs {live}, pair slots {slots}")
-            if composite.launches != i + 1:
-                raise AssertionError(f"scene {seed}: compositor launches {composite.launches}, expected {i + 1}")
+            if kernel_launches()[0] != i + 1:
+                raise AssertionError(f"scene {seed}: compositor launches {kernel_launches()[0]}, expected {i + 1}")
             log(f"scene {seed}: color mean {float(out.color.mean()):.4f}, alpha max {float(out.alpha.max()):.4f}, "
-                f"live pairs {live} of {slots} slots, compositor launches {composite.launches}")
-    launches = {"serve": {"composite_fwd": composite.launches, "composite_bwd": composite.backward_launches}}
+                f"live pairs {live} of {slots} slots, compositor launches {kernel_launches()[0]}")
+    launches = {"serve": launch_record()}
     if launches["serve"]["composite_fwd"] == 0:
         raise AssertionError("kernel composite_fwd was not launched on the serving path")
 

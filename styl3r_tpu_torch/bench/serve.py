@@ -20,6 +20,8 @@ Gaussian. Prints one JSON line, bench.py's record:
   * `tflops`, `peak_tflops`, `mfu`: utils/flops.py's FLOPs over `value`'s
     time against the H100's bf16 peak (None on the CPU), `model_gflops`;
   * `host_syncs`: the synchronisations of one forward with the host;
+  * `spans`: each span of utils/trace.py in a forward (its total over the
+    forward), the median of 10 more forwards with the tracer on, in ms;
   * `device`, `card`: the device, and the card's name and power limit.
 
 --impl jnp renders through the plain compositor (on the card too); pallas
@@ -41,7 +43,7 @@ import torch
 
 from ..device import resolve_device
 from ..models.styl3r import Batch, Styl3rModel
-from ..utils import flops
+from ..utils import flops, trace
 from .batch import example_batch
 from .common import TINY, device_names, flops_dims, no_tf32, resolve_impl, route, route_name, serving_model
 from .timing import back_to_back_ms, elapsed_ms, host_syncs, stamp, synchronize
@@ -71,8 +73,9 @@ def measure(model: Styl3rModel, batch: Batch, hw: Tuple[int, int], render_kwargs
             iters: int) -> Dict[str, object]:
     """One checked forward (its live pairs and pair slots), then the
     throughput of `iters` forwards back to back, the latency of
-    LATENCY_REPS synchronised forwards split into encoder and render, and
-    the host syncs of one forward; under torch.inference_mode."""
+    LATENCY_REPS synchronised forwards split into encoder and render, the
+    host syncs of one forward, and the spans of LATENCY_REPS more forwards
+    with the tracer on; under torch.inference_mode."""
     from ..models.decoder import render_gaussians
 
     dev = batch.context_images.device
@@ -101,6 +104,12 @@ def measure(model: Styl3rModel, batch: Batch, hw: Tuple[int, int], render_kwargs
             enc_ms.append(elapsed_ms(t0, t1))
             ren_ms.append(elapsed_ms(t1, t2))
         syncs = host_syncs(lambda: model(batch, hw, **render_kwargs))
+        trace.drain()
+        traced = []
+        for _ in range(LATENCY_REPS):
+            with trace.enabled():
+                model(batch, hw, **render_kwargs)
+            traced.append(trace.drain())
     return {
         "ms": ms,
         "scenes_per_sec": b / (ms / 1e3),
@@ -110,6 +119,7 @@ def measure(model: Styl3rModel, batch: Batch, hw: Tuple[int, int], render_kwargs
         "live_pairs_max": live,
         "pair_slots": slots,
         "host_syncs": syncs,
+        "spans": {name: statistics.median(rep.get(name, (0.0, 0))[0] for rep in traced) for name in traced[0]},
     }
 
 
@@ -160,6 +170,7 @@ def main(argv=None, model: Optional[Styl3rModel] = None) -> Dict[str, object]:
         encoder_ms=res["encoder_ms"],
         render_ms=res["render_ms"],
         host_syncs=res["host_syncs"],
+        spans=res["spans"],
         **device_names(dev),
     )
     if args.extra:

@@ -21,8 +21,8 @@ Prints one JSON line: ms a scene of each stage (`per_scene_ms`),
 `derived_ms` (stylizer, heads+adapter, composite), `scenes_per_sec` and
 `mfu` of the full forward (None on the CPU), and on the card the full
 forward's `device_breakdown` (device time and busy share, the top kernels,
-the longest gaps between kernels and the host op in each) and
-`host_syncs`.
+the longest gaps between kernels and the host op and utils/trace.py span
+in each) and `host_syncs`.
 """
 
 from __future__ import annotations

@@ -21,6 +21,7 @@ import torch
 from torch import Tensor
 
 from ..device import card_line  # noqa: F401  (the measurement scripts' import of it)
+from ..utils import trace
 
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -161,11 +162,15 @@ def trace_breakdown(events: Sequence[dict], calls: int, top: int = 10) -> Dict[s
     call (first to last event of any host op or kernel), the busy share of
     it, the kernels a call, the `top` kernels by device time, and the `top`
     longest gaps between kernels, each named by the innermost host op
-    (`cpu_op`) running at its midpoint (None where none was). Times in ms."""
+    (`cpu_op`) and the innermost span of utils/trace.py (a `styl3r/` range,
+    `user_annotation`) running at its midpoint (None where none was). Times
+    in ms."""
     kernels = sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
                      if e.get("ph") == "X" and e.get("cat") == "kernel")
     ops = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
            if e.get("ph") == "X" and e.get("cat") == "cpu_op"]
+    ranges = [(e["ts"], e["ts"] + e["dur"], e["name"][len(trace.PREFIX):]) for e in events
+              if e.get("ph") == "X" and e.get("cat") == "user_annotation" and e.get("name", "").startswith(trace.PREFIX)]
     if not kernels:
         raise AssertionError("trace_breakdown: the trace holds no kernel")
     spans = kernels + ops
@@ -181,8 +186,8 @@ def trace_breakdown(events: Sequence[dict], calls: int, top: int = 10) -> Dict[s
     for start, end, name in kernels:
         by_name.setdefault(name, []).append(end - start)
 
-    def host_op(t):
-        covering = [(end - start, name) for start, end, name in ops if start <= t <= end]
+    def innermost(t, intervals):
+        covering = [(end - start, name) for start, end, name in intervals if start <= t <= end]
         return min(covering)[1] if covering else None
 
     gaps = sorted(((b[0] - a[1], a[1], b[0]) for a, b in zip(busy, busy[1:])), key=lambda g: -g[0])[:top]
@@ -195,7 +200,8 @@ def trace_breakdown(events: Sequence[dict], calls: int, top: int = 10) -> Dict[s
             {"name": name, "ms_per_call": sum(d) / calls / 1e3, "launches_per_call": len(d) / calls}
             for name, d in sorted(by_name.items(), key=lambda kv: -sum(kv[1]))[:top]
         ],
-        "gaps": [{"ms": gap / 1e3, "host_op": host_op((start + end) / 2)} for gap, start, end in gaps],
+        "gaps": [{"ms": gap / 1e3, "host_op": innermost((start + end) / 2, ops),
+                  "span": innermost((start + end) / 2, ranges)} for gap, start, end in gaps],
     }
 
 

@@ -11,6 +11,7 @@ from torch import Tensor
 from ..geometry.gaussians import Gaussians
 from ..ops.rasterizer.camera import make_raster_camera
 from ..ops.rasterizer.render import render_many
+from ..utils import trace
 
 
 class DecoderOutput(NamedTuple):
@@ -46,66 +47,67 @@ def render_gaussians(
     near/far: (b, v). scale_invariant rescales each view's scene by 1/near.
     pair_cap_per_gaussian > 0 caps the kept pair slots at that many per
     (view, gaussian); 0 keeps every slot."""
-    b, v = extrinsics.shape[:2]
-    n = b * v
-    h, w = image_shape
-    dev = extrinsics.device
-    if background_color is None:
-        background_color = torch.zeros(3, dtype=torch.float32, device=dev)
-    backgrounds = torch.as_tensor(background_color, device=dev).expand(b, v, 3).reshape(n, 3)
-    if cam_rot_delta is None:
-        cam_rot_delta = torch.zeros(b, v, 3, dtype=extrinsics.dtype, device=dev)
-    if cam_trans_delta is None:
-        cam_trans_delta = torch.zeros(b, v, 3, dtype=extrinsics.dtype, device=dev)
+    with trace.span("render"):
+        b, v = extrinsics.shape[:2]
+        n = b * v
+        h, w = image_shape
+        dev = extrinsics.device
+        if background_color is None:
+            background_color = torch.zeros(3, dtype=torch.float32, device=dev)
+        backgrounds = torch.as_tensor(background_color, device=dev).expand(b, v, 3).reshape(n, 3)
+        if cam_rot_delta is None:
+            cam_rot_delta = torch.zeros(b, v, 3, dtype=extrinsics.dtype, device=dev)
+        if cam_trans_delta is None:
+            cam_trans_delta = torch.zeros(b, v, 3, dtype=extrinsics.dtype, device=dev)
 
-    def per_view(x: Tensor) -> Tensor:  # (b, g, ...) -> (n, g, ...) view
-        return x[:, None].expand(b, v, *x.shape[1:]).reshape(n, *x.shape[1:])
+        def per_view(x: Tensor) -> Tensor:  # (b, g, ...) -> (n, g, ...) view
+            return x[:, None].expand(b, v, *x.shape[1:]).reshape(n, *x.shape[1:])
 
-    ext = extrinsics.reshape(n, 4, 4)
-    intr = intrinsics.reshape(n, 3, 3)
-    nr = near.reshape(n).float()
-    fr = far.reshape(n).float()
-    mns = per_view(gaussians.means)
-    shs = per_view(gaussians.harmonics)
-    opas = per_view(gaussians.opacities)
-    use_factors = gaussians.scales is not None and gaussians.rotations is not None
-    if use_factors:
-        scl, rot, cvs = per_view(gaussians.scales), per_view(gaussians.rotations), None
-    else:
-        scl, rot, cvs = None, None, per_view(gaussians.covariances)
-
-    if scale_invariant:
-        scale = (1.0 / nr)[:, None]
-        ext = ext.clone()
-        ext[:, :3, 3] = ext[:, :3, 3] * scale
-        mns = mns * scale[..., None]
+        ext = extrinsics.reshape(n, 4, 4)
+        intr = intrinsics.reshape(n, 3, 3)
+        nr = near.reshape(n).float()
+        fr = far.reshape(n).float()
+        mns = per_view(gaussians.means)
+        shs = per_view(gaussians.harmonics)
+        opas = per_view(gaussians.opacities)
+        use_factors = gaussians.scales is not None and gaussians.rotations is not None
         if use_factors:
-            scl = scl * scale[..., None]
+            scl, rot, cvs = per_view(gaussians.scales), per_view(gaussians.rotations), None
         else:
-            cvs = cvs * (scale**2)[..., None, None]
-        nr = nr * scale[:, 0]
-        fr = fr * scale[:, 0]
+            scl, rot, cvs = None, None, per_view(gaussians.covariances)
 
-    cams = make_raster_camera(
-        ext, intr, nr, fr, image_shape,
-        cam_rot_delta=cam_rot_delta.reshape(n, 3),
-        cam_trans_delta=cam_trans_delta.reshape(n, 3),
-    )
-    g = mns.shape[1]
-    out = render_many(
-        cams, mns, cvs, shs, opas, image_shape, backgrounds,
-        scales=scl, rotations=rot,
-        max_tiles_per_gaussian=max_tiles_per_gaussian,
-        max_per_tile=max_per_tile,
-        pair_cap=pair_cap_per_gaussian * n * g if pair_cap_per_gaussian else None,
-    )
-    return DecoderOutput(
-        color=out.color.reshape(b, v, h, w, 3),
-        depth=out.depth.reshape(b, v, h, w),
-        alpha=out.alpha.reshape(b, v, h, w),
-        live_pairs=out.live_pairs.expand(n).reshape(b, v),
-        pair_slots=out.pair_slots.expand(n).reshape(b, v),
-    )
+        if scale_invariant:
+            scale = (1.0 / nr)[:, None]
+            ext = ext.clone()
+            ext[:, :3, 3] = ext[:, :3, 3] * scale
+            mns = mns * scale[..., None]
+            if use_factors:
+                scl = scl * scale[..., None]
+            else:
+                cvs = cvs * (scale**2)[..., None, None]
+            nr = nr * scale[:, 0]
+            fr = fr * scale[:, 0]
+
+        cams = make_raster_camera(
+            ext, intr, nr, fr, image_shape,
+            cam_rot_delta=cam_rot_delta.reshape(n, 3),
+            cam_trans_delta=cam_trans_delta.reshape(n, 3),
+        )
+        g = mns.shape[1]
+        out = render_many(
+            cams, mns, cvs, shs, opas, image_shape, backgrounds,
+            scales=scl, rotations=rot,
+            max_tiles_per_gaussian=max_tiles_per_gaussian,
+            max_per_tile=max_per_tile,
+            pair_cap=pair_cap_per_gaussian * n * g if pair_cap_per_gaussian else None,
+        )
+        return DecoderOutput(
+            color=out.color.reshape(b, v, h, w, 3),
+            depth=out.depth.reshape(b, v, h, w),
+            alpha=out.alpha.reshape(b, v, h, w),
+            live_pairs=out.live_pairs.expand(n).reshape(b, v),
+            pair_slots=out.pair_slots.expand(n).reshape(b, v),
+        )
 
 
 def orthographic_cameras(

@@ -22,6 +22,7 @@ import torch.nn as nn
 from torch import Tensor
 
 from ..geometry.gaussians import Gaussians
+from ..utils import trace
 from .adapter import d_sh, map_pdf_to_opacity, raw_gaussian_channels, unified_gaussian_adapter
 from .croco import CrocoEncBackbone, MultiViewCrocoBackbone, StructureBuilder, TokenStylizer
 from .dpt import DPTGSHead, DPTGSSHHead, DPTPts3dHead
@@ -46,16 +47,17 @@ def _adapt(raw: Tensor, pts: Tensor, encoder: nn.Module, global_step: int, retur
     """Raw (b, v, h, w, 1 + channels) head outputs and (b, v, h, w, 3) points
     -> Gaussians through the unified adapter (+ the aux dict)."""
     b, v, h, w, _ = raw.shape
-    densities = torch.sigmoid(raw[..., 0])
-    opacities = map_pdf_to_opacity(
-        densities, global_step, encoder.opacity_initial, encoder.opacity_final, encoder.opacity_warm_up,
-    )
-    gaussians = unified_gaussian_adapter(
-        means=pts.reshape(b, v * h * w, 3),
-        opacities=opacities.reshape(b, v * h * w),
-        raw=raw[..., 1:].reshape(b, v * h * w, -1),
-        sh_degree=encoder.sh_degree,
-    )
+    with trace.span("adapter"):
+        densities = torch.sigmoid(raw[..., 0])
+        opacities = map_pdf_to_opacity(
+            densities, global_step, encoder.opacity_initial, encoder.opacity_final, encoder.opacity_warm_up,
+        )
+        gaussians = unified_gaussian_adapter(
+            means=pts.reshape(b, v * h * w, 3),
+            opacities=opacities.reshape(b, v * h * w),
+            raw=raw[..., 1:].reshape(b, v * h * w, -1),
+            sh_degree=encoder.sh_degree,
+        )
     if return_aux:
         return gaussians, {"pts3d": pts, "depths": pts[..., 2], "densities": densities}
     return gaussians
@@ -152,31 +154,32 @@ class Styl3rEncoder(nn.Module):
         read; here they are not run."""
         b, v, h, w, _ = context_images.shape
 
-        with compute_in(self.backbone_dtype, self.backbone.dtype, context_images.device.type):
+        with trace.span("backbone"), compute_in(self.backbone_dtype, self.backbone.dtype, context_images.device.type):
             enc_feat, enc_pos, dec_feat = self.backbone(context_images, context_intrinsics)
 
-        dec0 = [t[:, 0].float() for t in dec_feat]
-        decr = [t[:, 1:].reshape(b * (v - 1), *t.shape[2:]).float() for t in dec_feat]
-
-        pts0 = self.downstream_head1(dec0, (h, w))
-        ptsr = self.downstream_head2(decr, (h, w)).reshape(b, v - 1, h, w, 3)
-        pts_all = torch.cat([pts0[:, None], ptsr], dim=1)  # (b, v, h, w, 3)
+        with trace.span("heads"):
+            dec0 = [t[:, 0].float() for t in dec_feat]
+            decr = [t[:, 1:].reshape(b * (v - 1), *t.shape[2:]).float() for t in dec_feat]
+            pts0 = self.downstream_head1(dec0, (h, w))
+            ptsr = self.downstream_head2(decr, (h, w)).reshape(b, v - 1, h, w, 3)
+            pts_all = torch.cat([pts0[:, None], ptsr], dim=1)  # (b, v, h, w, 3)
         if distill_only:
             pts = pts_all.transpose(2, 3) if transpose_maps else pts_all
             return {"pts3d": pts, "depths": pts[..., 2]}
 
-        with compute_in(self.backbone_dtype, self.backbone.dtype, context_images.device.type):
+        with trace.span("stylizer"), compute_in(self.backbone_dtype, self.backbone.dtype, context_images.device.type):
             sty_feat = self.token_stylizer(style_image, enc_feat, enc_pos)
 
-        imgs = context_images.float()
-        gs0 = self.gaussian_param_head(dec0, imgs[:, 0], (h, w), generator)
-        gsr = self.gaussian_param_head2(
-            decr, imgs[:, 1:].reshape(b * (v - 1), h, w, 3), (h, w), generator
-        )
-        gs_struct = torch.cat([gs0[:, None], gsr.reshape(b, v - 1, h, w, -1)], dim=1)
+        with trace.span("heads"):
+            imgs = context_images.float()
+            gs0 = self.gaussian_param_head(dec0, imgs[:, 0], (h, w), generator)
+            gsr = self.gaussian_param_head2(
+                decr, imgs[:, 1:].reshape(b * (v - 1), h, w, 3), (h, w), generator
+            )
+            gs_struct = torch.cat([gs0[:, None], gsr.reshape(b, v - 1, h, w, -1)], dim=1)
 
-        sty_flat = [t.reshape(b * v, *t.shape[2:]).float() for t in sty_feat]
-        gs_appear = self.gaussian_appearance_head(sty_flat, (h, w), generator).reshape(b, v, h, w, -1)
+            sty_flat = [t.reshape(b * v, *t.shape[2:]).float() for t in sty_feat]
+            gs_appear = self.gaussian_appearance_head(sty_flat, (h, w), generator).reshape(b, v, h, w, -1)
 
         raw = torch.cat([gs_struct, gs_appear], dim=-1)
         if transpose_maps:

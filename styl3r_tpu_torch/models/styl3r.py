@@ -16,6 +16,7 @@ import torch.nn as nn
 from torch import Tensor
 
 from ..device import DeviceLike, resolve_device
+from ..utils import trace
 from ..utils.convert import init_like_flax_
 from .decoder import render_gaussians
 from .encoder import Styl3rEncoder
@@ -120,11 +121,12 @@ class Styl3rModel(nn.Module):
             context = context.transpose(2, 3)
             style = style.transpose(1, 2)
             intrinsics = transpose_intrinsics(intrinsics)
-        return self.encoder(
-            context, intrinsics, style,
-            global_step=global_step, return_aux=return_aux, transpose_maps=portrait,
-            generator=generator, distill_only=distill_only,
-        )
+        with trace.span("encoder"):
+            return self.encoder(
+                context, intrinsics, style,
+                global_step=global_step, return_aux=return_aux, transpose_maps=portrait,
+                generator=generator, distill_only=distill_only,
+            )
 
     def forward(
         self,

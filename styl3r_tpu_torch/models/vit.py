@@ -17,6 +17,7 @@ from torch import Tensor
 
 from ..ops.attention import dot_product_attention
 from ..ops.rope import apply_rope2d
+from ..utils import trace
 
 
 def layer_norm(dim: int) -> nn.LayerNorm:
@@ -53,8 +54,9 @@ class Attention(nn.Module):
         b, n, _ = x.shape
         q, k, v = self.qkv(x).reshape(b, n, 3, self.num_heads, self.head_dim).unbind(2)
         if self.rope_base is not None:
-            q = apply_rope2d(q, pos, self.rope_base)
-            k = apply_rope2d(k, pos, self.rope_base)
+            with trace.span("rope"):
+                q = apply_rope2d(q, pos, self.rope_base)
+                k = apply_rope2d(k, pos, self.rope_base)
         out = dot_product_attention(q, k, v, scale=self.head_dim**-0.5)
         return self.proj(out.reshape(b, n, self.num_heads * self.head_dim))
 
@@ -86,10 +88,11 @@ class CrossAttention(nn.Module):
         k = self.projk(key).reshape(b, key.shape[1], heads, head_dim)
         v = self.projv(value).reshape(b, value.shape[1], heads, head_dim)
         if self.rope_base is not None:
-            if qpos is not None:
-                q = apply_rope2d(q, qpos, self.rope_base)
-            if kpos is not None:
-                k = apply_rope2d(k, kpos, self.rope_base)
+            with trace.span("rope"):
+                if qpos is not None:
+                    q = apply_rope2d(q, qpos, self.rope_base)
+                if kpos is not None:
+                    k = apply_rope2d(k, kpos, self.rope_base)
         out = dot_product_attention(q, k, v, scale=head_dim**-0.5)
         return self.proj(out.reshape(b, nq, heads * head_dim))
 

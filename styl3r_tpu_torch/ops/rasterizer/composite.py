@@ -28,7 +28,7 @@ from typing import NamedTuple, Tuple
 import torch
 from torch import Tensor
 
-from ...utils import cuda_build
+from ...utils import cuda_build, trace
 
 TILE = 16
 P = TILE * TILE  # pixels per tile
@@ -43,11 +43,6 @@ T_EPS = 1e-4  # tile early-exit transmittance
 T_MIN = torch.finfo(torch.float32).tiny
 MIN_ALPHA = 1.0 / 255.0
 MAX_ALPHA = 0.99
-
-# Launches of the CUDA kernels since the counts were last set to 0.
-launches = 0  # composite_fwd
-backward_launches = 0  # composite_bwd
-
 
 class CompositeOutput(NamedTuple):
     color: Tensor  # (n_tiles, P, 3)
@@ -379,8 +374,7 @@ def composite_tiles(
         )
     if rc != 0:
         raise RuntimeError(f"composite_fwd kernel launch failed with CUDA error {rc}")
-    global launches
-    launches += 1
+    trace.count("composite_fwd_launches")
     return CompositeOutput(color, depth, alpha, n_done, t_final)
 
 
@@ -403,7 +397,7 @@ def composite_backward(
     (n_tiles, P, 3), ddepth (n_tiles, P) and the folded dalpha (n_tiles, P).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel's
-    two phases (one call, counted once in `backward_launches`). The grid of
+    two phases (two launches in utils/trace.py's counter). The grid of
     (tile, window) blocks and the (n_tiles, n_windows, P, 2) f32 scratch of
     the window sums are sized by n_windows = max_windows(max_per_tile), the
     bound on n_done of the forward that took this `max_per_tile`, without
@@ -439,8 +433,7 @@ def composite_backward(
         )
     if rc != 0:
         raise RuntimeError(f"composite_bwd kernel launch failed with CUDA error {rc}")
-    global backward_launches
-    backward_launches += 1
+    trace.count("composite_bwd_launches", 2)
     return grad
 
 

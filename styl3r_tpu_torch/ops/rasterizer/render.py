@@ -24,6 +24,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 from torch import Tensor
 
+from ...utils import trace
 from .camera import RasterCamera
 from .composite import composite_tiles_diff, pack_attrs
 from .project import eval_sh, project_gaussians
@@ -194,39 +195,41 @@ def composite_inputs(
     dirs = dirs / torch.clamp(torch.linalg.norm(dirs, dim=-1, keepdim=True), min=1e-8)
     colors = eval_sh(harmonics, dirs)  # (n, g, 3)
 
-    pair_tiles, pair_depths, pair_gidx = _build_pairs(
-        proj.mean_x, proj.mean_y, proj.radii, proj.depths, proj.mask, (gy, gx),
-        max_tiles_per_gaussian, opacities=opacities,
-        con_a=proj.con_a, con_b=proj.con_b, con_c=proj.con_c,
-    )
-    # View-major pair order; view i's tiles and gaussian ids go global.
-    view_ids = torch.arange(n, dtype=torch.int32, device=means.device)[:, None]
-    pair_tiles = torch.where(
-        pair_tiles >= n_tiles, torch.full_like(pair_tiles, n_total), pair_tiles + view_ids * n_tiles
-    ).reshape(-1)
-    pair_gidx = (pair_gidx + view_ids * g).reshape(-1)
-    _, sorted_gidx, starts, ends = _sort_pairs(
-        pair_tiles, pair_depths.reshape(-1), pair_gidx, n_total
-    )
-    # Invalid slots sort to the end, so the last tile's end is the live count.
-    live_pairs = ends[-1]
-    if pair_cap is not None and pair_cap < sorted_gidx.shape[0]:
-        # Rounded up to the 128-pair window, so a cap sized to the live
-        # count never drops a live pair.
-        cap = -(-pair_cap // 128) * 128
-        sorted_gidx = sorted_gidx[:cap]
-        starts = torch.clamp(starts, max=cap)
-        ends = torch.clamp(ends, max=cap)
-    counts = torch.clamp(ends - starts, max=max_per_tile)
+    with trace.span("sort"):
+        pair_tiles, pair_depths, pair_gidx = _build_pairs(
+            proj.mean_x, proj.mean_y, proj.radii, proj.depths, proj.mask, (gy, gx),
+            max_tiles_per_gaussian, opacities=opacities,
+            con_a=proj.con_a, con_b=proj.con_b, con_c=proj.con_c,
+        )
+        # View-major pair order; view i's tiles and gaussian ids go global.
+        view_ids = torch.arange(n, dtype=torch.int32, device=means.device)[:, None]
+        pair_tiles = torch.where(
+            pair_tiles >= n_tiles, torch.full_like(pair_tiles, n_total), pair_tiles + view_ids * n_tiles
+        ).reshape(-1)
+        pair_gidx = (pair_gidx + view_ids * g).reshape(-1)
+        _, sorted_gidx, starts, ends = _sort_pairs(
+            pair_tiles, pair_depths.reshape(-1), pair_gidx, n_total
+        )
+        # Invalid slots sort to the end, so the last tile's end is the live count.
+        live_pairs = ends[-1]
+        if pair_cap is not None and pair_cap < sorted_gidx.shape[0]:
+            # Rounded up to the 128-pair window, so a cap sized to the live
+            # count never drops a live pair.
+            cap = -(-pair_cap // 128) * 128
+            sorted_gidx = sorted_gidx[:cap]
+            starts = torch.clamp(starts, max=cap)
+            ends = torch.clamp(ends, max=cap)
+        counts = torch.clamp(ends - starts, max=max_per_tile)
 
     def flat(x):
         return x.reshape((n * g,) + x.shape[2:])
 
-    attrs = pack_attrs(
-        flat(proj.mean_x), flat(proj.mean_y),
-        flat(proj.con_a), flat(proj.con_b), flat(proj.con_c),
-        flat(opacities), flat(colors), flat(proj.depths), sorted_gidx,
-    )
+    with trace.span("pack"):
+        attrs = pack_attrs(
+            flat(proj.mean_x), flat(proj.mean_y),
+            flat(proj.con_a), flat(proj.con_b), flat(proj.con_c),
+            flat(opacities), flat(colors), flat(proj.depths), sorted_gidx,
+        )
     return CompositeInputs(
         attrs=attrs,
         starts=starts.contiguous(),

@@ -26,6 +26,7 @@ from torch.distributed.tensor import DTensor
 
 from ..parallel.mesh import all_reduce_grads_, local_tensor, reduce_metrics
 from ..parallel.tp import global_sq_norm
+from ..utils import trace
 
 
 def make_schedule(
@@ -104,12 +105,14 @@ class GroupedAdamW:
         """Clip, then update. A parameter the loss did not reach gets a zero
         gradient, so weight decay still applies to it, as with optax.
         Returns the gradient's global norm before clipping."""
-        for p in self.params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        norm = clip_by_global_norm_(self.params, self.grad_clip)
-        self.adamw.step()
-        self.schedule.step()
+        with trace.span("clip"):
+            for p in self.params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            norm = clip_by_global_norm_(self.params, self.grad_clip)
+        with trace.span("adamw"):
+            self.adamw.step()
+            self.schedule.step()
         return norm
 
 
@@ -216,7 +219,7 @@ def distill_loss(distill: DistillCfg, pts3d: Tensor, batch, global_step: int, da
     from ..losses.regr3d import regr3d_loss
     from ..models.styl3r import normalize_images
 
-    with torch.no_grad():
+    with torch.no_grad(), trace.span("teacher"):
         pseudo = distill.teacher(normalize_images(batch.context_images[:, :2]))
     raw = regr3d_loss(
         pseudo["pts3d_1"], pseudo["pts3d_2"], pts3d[:, 0], pts3d[:, 1],
@@ -245,7 +248,6 @@ def make_train_step(
     distill: Optional[DistillCfg] = None,
     portrait: bool = False,
     data=None,
-    reduce_clock=None,
     **render_kwargs,
 ):
     """The train step: `step(state, batch, generator) -> metrics`, which
@@ -273,14 +275,17 @@ def make_train_step(
     gradients are averaged over the ranks before the clip (so `grad_norm` is
     the global norm and every rank updates alike), and the metrics are
     reduced over the ranks (reduce_metrics), with `allreduce_bytes` added.
-    `reduce_clock` (start/stop) times the gradients' all-reduce."""
+
+    Spans (utils/trace.py): `forward` from the batch to the scalar loss,
+    `loss` around loss_fn, `teacher` around the teacher, `backward`,
+    `allreduce`, and the optimizer's `clip` and `adamw`."""
     if loss_fn is None:
 
         def loss_fn(output, batch, gaussians, global_step=0, identity_output=None):
             mse = ((output.color - batch.target_images) ** 2).mean()
             return mse, {"mse": mse}
 
-    def train_step(state: TrainState, batch, generator: torch.Generator) -> Dict[str, Tensor]:
+    def forward(state: TrainState, batch, generator: torch.Generator) -> Tuple[Tensor, Dict[str, Tensor]]:
         if not stylized:
             batch = batch._replace(style_image=batch.context_images[:, 0])
         model.train()
@@ -291,7 +296,7 @@ def make_train_step(
                 batch, state.step, portrait=portrait, generator=generator, distill_only=True
             )["pts3d"]
             loss = distill_loss(distill, pts, batch, state.step, data)
-            return update(state, loss, {"distill": loss})
+            return loss, {"distill": loss}
 
         rng_state = generator.get_state()
         kw = dict(global_step=state.step, portrait=portrait, generator=generator, **render_kwargs)
@@ -302,25 +307,28 @@ def make_train_step(
             generator.set_state(rng_state)
             id_batch = batch._replace(style_image=batch.context_images[:, 0])
             _, identity_output = model(id_batch, image_shape, **kw)
-        loss, metrics = loss_fn(
-            output, batch, gaussians, global_step=state.step, identity_output=identity_output
-        )
+        with trace.span("loss"):
+            loss, metrics = loss_fn(
+                output, batch, gaussians, global_step=state.step, identity_output=identity_output
+            )
         if distill is not None:
             term = distill_loss(distill, fwd[2]["pts3d"], batch, state.step, data)
             loss = loss + term
             metrics = dict(metrics, distill=term)
-        metrics = dict(metrics, live_pairs=output.live_pairs.max(), pair_slots=output.pair_slots.min())
+        return loss, dict(metrics, live_pairs=output.live_pairs.max(), pair_slots=output.pair_slots.min())
+
+    def train_step(state: TrainState, batch, generator: torch.Generator) -> Dict[str, Tensor]:
+        with trace.span("forward"):
+            loss, metrics = forward(state, batch, generator)
         return update(state, loss, metrics)
 
     def update(state: TrainState, loss: Tensor, metrics: Dict[str, Tensor]) -> Dict[str, Tensor]:
         optimizer.zero_grad()
-        loss.backward()
+        with trace.span("backward"):
+            loss.backward()
         if data is not None:
-            if reduce_clock is not None:
-                reduce_clock.start()
-            reduced = all_reduce_grads_(optimizer.params, data)
-            if reduce_clock is not None:
-                reduce_clock.stop()
+            with trace.span("allreduce"):
+                reduced = all_reduce_grads_(optimizer.params, data)
         grad_norm = optimizer.step()
         state.step += 1
         metrics = dict({k: v.detach() for k, v in metrics.items()}, loss=loss.detach(), grad_norm=grad_norm)

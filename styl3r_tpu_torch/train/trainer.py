@@ -21,6 +21,7 @@ trained on. Rank 0 alone logs, validates and writes checkpoints.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import time
@@ -46,6 +47,7 @@ from ..utils.checkpoint import (
     reject_directory,
 )
 from ..parallel.mesh import broadcast_params_, data_group, gather_objects, shard_batch
+from ..utils import trace
 from ..utils.config import RootCfg
 from ..utils.convert import init_like_flax_
 from .losses import LossBundle
@@ -266,35 +268,6 @@ def step_generator(seed: int, step: int, device: torch.device) -> torch.Generato
     and the step alone."""
     words = np.random.SeedSequence([seed, step]).generate_state(2)
     return torch.Generator(device).manual_seed(int(words[0]) << 32 | int(words[1]))
-
-
-class StepClock:
-    """Times one span on the device's clock: CUDA events on the card (read
-    only when asked, so the span is not synchronized), the host's clock on
-    the CPU."""
-
-    def __init__(self, device: torch.device):
-        self.cuda = device.type == "cuda"
-
-    def start(self):
-        if self.cuda:
-            self._start = torch.cuda.Event(enable_timing=True)
-            self._start.record()
-        else:
-            self._t0 = time.perf_counter()
-
-    def stop(self):
-        if self.cuda:
-            self._end = torch.cuda.Event(enable_timing=True)
-            self._end.record()
-        else:
-            self._ms = 1e3 * (time.perf_counter() - self._t0)
-
-    def ms(self) -> float:
-        if self.cuda:
-            self._end.synchronize()
-            return self._start.elapsed_time(self._end)
-        return self._ms
 
 
 def _first(gaussians):
@@ -531,11 +504,15 @@ class Trainer:
         restored state) are broadcast before the first step.
 
         Logged every `train.log_every_n_steps`: the step's metrics,
-        `seconds_per_step` (the host's time between logs), `step_ms` (the
-        logged step on the device's clock: CUDA events on the card) and
-        `data_seconds` (the host's wait for the step's batch); data-parallel,
-        also `allreduce_ms` (the gradients' all-reduce, inside `step_ms`) and
-        `allreduce_bytes`; after each validation `validate_seconds`."""
+        `seconds_per_step` (the host's time between logs), `data_seconds`
+        (the host's wait for the step's batch) and `<span>_ms` for each span
+        of utils/trace.py the logged step entered (its total over the step,
+        on the device's clock: CUDA events on the card), among them
+        `step_ms` (the whole step) and, data-parallel, `allreduce_ms` (the
+        gradients' all-reduce, inside `step_ms`); data-parallel also
+        `allreduce_bytes`; after each validation `validate_seconds`. Tracing
+        is on for the logged steps only, and the tracer's totals are drained
+        after each."""
         cfg = self.cfg
         max_steps = max_steps or cfg.optimizer.total_steps
         stylized = bool(cfg.losses.style) or cfg.losses.identity
@@ -590,14 +567,12 @@ class Trainer:
         step_cache: Dict[Tuple[int, int], Any] = {}
         self._step_cache = step_cache
 
-        reduce_clock = StepClock(self.device)
-
         def get_step_fn(hh: int, ww: int):
             if (hh, ww) not in step_cache:
                 step_cache[(hh, ww)] = make_train_step(
                     self.model, self.optimizer, (hh, ww), loss_fn=self.loss_bundle, stylized=stylized,
                     identity_branch=self.loss_bundle.identity, distill=self.distill, portrait=hh > ww,
-                    data=self.data, reduce_clock=reduce_clock, **self._render_kwargs,
+                    data=self.data, **self._render_kwargs,
                 )
             return step_cache[(hh, ww)]
 
@@ -606,25 +581,25 @@ class Trainer:
             batch, position = next(positioned)
             return batch_to(batch, self.device), position, time.perf_counter() - t0
 
-        clock = StepClock(self.device)
         try:
             batch, position, data_s = next_batch()
             t_last = time.time()
             for i in range(state.step, max_steps):
                 bh, bw = batch.context_images.shape[2:4]
-                clock.start()
-                metrics = get_step_fn(bh, bw)(state, batch, step_generator(cfg.train.seed + 1, i, self.device))
-                clock.stop()
+                logged = (i + 1) % cfg.train.log_every_n_steps == 0
+                if logged:
+                    trace.drain()  # what an operator's profiler left since the last logged step
+                with trace.enabled() if logged else contextlib.nullcontext(), trace.span("step"):
+                    metrics = get_step_fn(bh, bw)(state, batch, step_generator(cfg.train.seed + 1, i, self.device))
                 self._data_position = position
 
-                if (i + 1) % cfg.train.log_every_n_steps == 0:
+                if logged:
                     metrics = {k: float(v) for k, v in metrics.items()}
-                    if self.data is not None:
-                        metrics["allreduce_ms"] = reduce_clock.ms()
+                    spans = {f"{name}_ms": ms for name, (ms, _) in trace.drain().items()}
                     dt = (time.time() - t_last) / cfg.train.log_every_n_steps
                     t_last = time.time()
                     self.logger.log_scalars(i + 1, dict(
-                        metrics, seconds_per_step=dt, step_ms=clock.ms(), data_seconds=data_s,
+                        metrics, seconds_per_step=dt, data_seconds=data_s, **spans,
                     ))
                     self._print(f"step {i + 1}: loss={metrics['loss']:.4f} ({dt:.2f}s/step)", flush=True)
 

@@ -177,7 +177,8 @@ def test_trace_breakdown_on_a_known_trace():
     assert out["busy_share"] == busy / window and out["kernels_per_call"] == 2.0
     assert out["top_kernels"][0] == {"name": "k_a", "ms_per_call": 20 / 2 / 1e3, "launches_per_call": 1.0}
     assert [k["name"] for k in out["top_kernels"]] == ["k_a", "k_b"]
-    assert out["gaps"] == [{"ms": 60 / 1e3, "host_op": "aten::mul"}, {"ms": 10 / 1e3, "host_op": "aten::item"}]
+    assert out["gaps"] == [{"ms": 60 / 1e3, "host_op": "aten::mul", "span": None},
+                           {"ms": 10 / 1e3, "host_op": "aten::item", "span": None}]  # no styl3r/ range here
     assert timing.trace_breakdown([x("kernel", "k", 0, 4)], calls=1)["gaps"] == []
 
 

@@ -24,8 +24,16 @@ import pytest
 import torch
 
 from styl3r_tpu_torch.ops.rasterizer import composite
+from styl3r_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
+
+
+def launches():
+    """(forward, backward) compositor kernel launches so far: utils/trace.py's
+    counters, in which each backward call launches its two phases."""
+    c = trace.counters()
+    return c["composite_fwd_launches"], c["composite_bwd_launches"]
 
 
 @pytest.fixture
@@ -66,11 +74,11 @@ def _inputs(seed, device):
 
 def test_composite_kernel_matches_plain(cuda):
     args = _inputs(0, cuda)
-    before = composite.launches
+    before = launches()[0]
     ours = composite.composite_tiles(*args)
     ref = composite.composite_tiles_plain(*args)
     torch.cuda.synchronize()
-    assert composite.launches == before + 1
+    assert launches()[0] == before + 1
     assert torch.equal(ours.n_done, ref.n_done)
     assert int(ref.n_done.max()) >= 3
     for name in ("color", "alpha", "t_final"):
@@ -102,11 +110,11 @@ def test_backward_kernel_matches_plain(cuda):
     attrs, starts, counts, bg, grid, max_per_tile, n_views = _inputs(2, cuda)
     fwd = composite.composite_tiles(attrs, starts, counts, bg, grid, max_per_tile, n_views)
     args = (attrs, starts, counts, fwd.n_done, fwd.t_final, *_cotangents(0, starts.shape[0], cuda), grid, n_views)
-    before = composite.backward_launches
+    before = launches()[1]
     ours = composite.composite_backward(*args, max_per_tile=max_per_tile)
     ref = composite.composite_backward_plain(*args)
     torch.cuda.synchronize()
-    assert composite.backward_launches == before + 1
+    assert launches()[1] == before + 2  # the backward's two phases
     walked = torch.zeros(attrs.shape[0], dtype=torch.bool, device=cuda)
     for t in range(starts.shape[0]):
         s0, c = int(starts[t]), int(counts[t])
@@ -152,9 +160,9 @@ def test_render_gradients_on_the_card_match_the_cpu(cuda):
         loss = ((out.color - torch.tensor(target, dtype=torch.float32, device=device)) ** 2).mean() + 0.1 * out.depth.mean()
         return [x.cpu() for x in torch.autograd.grad(loss, list(t.values()))]
 
-    before = (composite.launches, composite.backward_launches)
+    before = launches()
     ours = grads(cuda)
-    assert (composite.launches, composite.backward_launches) == (before[0] + 1, before[1] + 1)
+    assert launches() == (before[0] + 1, before[1] + 2)
     for a, b in zip(ours, grads("cpu")):
         scale = float(b.abs().max())
         assert scale > 0
@@ -221,12 +229,12 @@ def _pipelines_agree(args, seed):
     fwd, fwd_ref = composite.composite_tiles(*args), composite.composite_tiles_plain(*args)
     assert torch.equal(fwd.n_done, fwd_ref.n_done)
     cot = _cotangents(seed, starts.shape[0], attrs.device)
-    before = composite.backward_launches
+    before = launches()[1]
     ours = composite.composite_backward(attrs, starts, counts, fwd.n_done, fwd.t_final, *cot, grid, n_views,
                                         max_per_tile=max_per_tile)
     ref = composite.composite_backward_plain(attrs, starts, counts, fwd_ref.n_done, fwd_ref.t_final, *cot, grid, n_views)
     torch.cuda.synchronize()
-    assert composite.backward_launches == before + 1
+    assert launches()[1] == before + 2  # the backward's two phases
     walked = _walked(starts, counts, fwd.n_done, attrs.shape[0])
     assert bool((ours[~walked] == 0).all()) and bool((ref[~walked] == 0).all())
     assert torch.equal(ours[:, composite.N_GRAD:], torch.zeros_like(ours[:, composite.N_GRAD:]))
@@ -352,11 +360,11 @@ def test_forward_kernel_matches_plain_on_window_and_chunk_edges(cuda, case):
     scale)."""
     args = {"seventeen_windows": _seventeen_windows, "unaligned_span": _unaligned_span,
             "chunk_edges": _chunk_edges}[case](cuda)
-    before = composite.launches
+    before = launches()[0]
     ours = composite.composite_tiles(*args)
     ref = composite.composite_tiles_plain(*args)
     torch.cuda.synchronize()
-    assert composite.launches == before + 1
+    assert launches()[0] == before + 1
     assert torch.equal(ours.n_done, ref.n_done)
     assert ours.n_done.tolist() == {"seventeen_windows": [17, 0, 1, 1], "unaligned_span": [3, 1],
                                     "chunk_edges": [1, 3]}[case]
@@ -448,14 +456,14 @@ def test_camera_delta_gradients_match_plain(cuda, monkeypatch):
                                max_per_tile=512)
         return torch.autograd.grad(((out.color - images) ** 2).mean(), (rot, trans))
 
-    before = (composite.launches, composite.backward_launches)
+    before = launches()
     ours = grads()
-    assert (composite.launches, composite.backward_launches) == (before[0] + 1, before[1] + 1)
+    assert launches() == (before[0] + 1, before[1] + 2)
     monkeypatch.setattr(composite, "composite_tiles", composite.composite_tiles_plain)
     monkeypatch.setattr(composite, "composite_backward",
                         lambda *args, max_per_tile: composite.composite_backward_plain(*args))
     plain = grads()
-    assert (composite.launches, composite.backward_launches) == (before[0] + 1, before[1] + 1)
+    assert launches() == (before[0] + 1, before[1] + 2)
     for a, b in zip(ours, plain):
         scale = float(b.abs().max())
         assert scale > 0
@@ -467,9 +475,9 @@ def test_each_alignment_step_launches_each_kernel_once(cuda):
 
     gaussians, ext, k, near, far, images, hw = _alignment_scene(cuda)
     for steps in (1, 3):
-        before = (composite.launches, composite.backward_launches)
+        before = launches()
         aligned = align_target_poses(gaussians, ext, k, near, far, images, hw, steps=steps, max_per_tile=512)
-        assert (composite.launches - before[0], composite.backward_launches - before[1]) == (steps, steps)
+        assert (launches()[0] - before[0], launches()[1] - before[1]) == (steps, 2 * steps)
         assert bool(torch.isfinite(aligned).all()) and float((aligned - ext).abs().max()) > 0
 
 
@@ -531,10 +539,10 @@ def test_each_refinement_step_launches_each_kernel_once(cuda):
 
     gaussians, ext, k, near, far, images, hw = _alignment_scene(cuda, v=1)
     for steps in (1, 3):
-        before = (composite.launches, composite.backward_launches)
+        before = launches()
         refined = refine_pose_photometric(gaussians, ext[0, 0], k[0, 0], images[0, 0], float(near[0, 0]),
                                           float(far[0, 0]), steps=steps, max_per_tile=512)
-        assert (composite.launches - before[0], composite.backward_launches - before[1]) == (steps, steps)
+        assert (launches()[0] - before[0], launches()[1] - before[1]) == (steps, 2 * steps)
         assert refined.shape == (4, 4) and bool(torch.isfinite(refined).all())
         assert float((refined - ext[0, 0]).abs().max()) > 0
 
@@ -590,10 +598,12 @@ def _fit_first_loss(device, tmp_path, monkeypatch, config="configs/experiment/re
     real_generator = trainer_mod.step_generator
     monkeypatch.setattr(trainer_mod, "step_generator", lambda seed, step, _device: real_generator(seed, step, "cpu"))
 
-    def cpu_mask_dropout(x, p, training, generator):
+    def cpu_mask_dropout(x, p, training, generator, shard=(0, 1)):
         if not training or p == 0.0:
             return x
-        keep = (torch.rand(x.shape, generator=generator) >= p).to(x.device)
+        rank, world = shard
+        n = x.shape[0]
+        keep = (torch.rand((world * n, *x.shape[1:]), generator=generator)[rank * n:(rank + 1) * n] >= p).to(x.device)
         return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
     monkeypatch.setattr(dpt, "dropout", cpu_mask_dropout)
@@ -616,10 +626,10 @@ def _fit_first_loss(device, tmp_path, monkeypatch, config="configs/experiment/re
     ])
     trainer = trainer_mod.Trainer(cfg, model=model, teacher=Dust3RTeacher(**dict(tiny, head_last_dim=8)) if teacher
                                   else None)
-    before = (composite.launches, composite.backward_launches)
+    before = launches()
     trainer.fit(max_steps=1, batches=iter([batch]))
     trainer.close()
-    launched = (composite.launches - before[0], composite.backward_launches - before[1])
+    launched = (launches()[0] - before[0], launches()[1] - before[1])
     first = json.loads((out / "metrics.jsonl").read_text().splitlines()[0])
     return first, launched
 
@@ -633,7 +643,7 @@ def test_tiny_fit_on_the_card_launches_both_kernels_and_matches_the_cpu(cuda, tm
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
     cpu_first, cpu_launched = _fit_first_loss("cpu", tmp_path, monkeypatch)
     gpu_first, gpu_launched = _fit_first_loss("cuda", tmp_path, monkeypatch)
-    assert cpu_launched == (0, 0) and gpu_launched == (2, 2)
+    assert cpu_launched == (0, 0) and gpu_launched == (2, 4)
     cpu_loss, gpu_loss = cpu_first["loss"], gpu_first["loss"]
     assert np.isfinite(gpu_loss) and abs(gpu_loss - cpu_loss) <= 1e-4 * abs(cpu_loss)
 
@@ -654,7 +664,7 @@ def test_tiny_distillation_on_the_card_matches_the_cpu(cuda, tmp_path, monkeypat
         kw = dict(config="configs/experiment/re10k_2view_nvs.yaml", overrides=["losses.distill=0.1"], teacher=True)
     cpu_first, cpu_launched = _fit_first_loss("cpu", tmp_path, monkeypatch, **kw)
     gpu_first, gpu_launched = _fit_first_loss("cuda", tmp_path, monkeypatch, **kw)
-    assert cpu_launched == (0, 0) and gpu_launched == ((0, 0) if stage == "stage0" else (1, 1))
+    assert cpu_launched == (0, 0) and gpu_launched == ((0, 0) if stage == "stage0" else (1, 2))
     for key in ("loss", "distill"):
         assert gpu_first[key] > 0 and abs(gpu_first[key] - cpu_first[key]) <= 1e-4 * abs(cpu_first[key]), key
 
@@ -690,12 +700,12 @@ def test_posed_adapter_on_the_card_matches_the_cpu(cuda):
     flat = type(ours)(*(x.reshape(1, v * 1024, *x.shape[2:]) for x in ours))
     cam = torch.eye(4, device=cuda)[None, None]
     kt = torch.from_numpy(k[:1]).to(cuda)[None]
-    before = (composite.launches, composite.backward_launches)
+    before = launches()
     out = render_gaussians(flat, cam, kt, torch.full((1, 1), 0.1, device=cuda), torch.full((1, 1), 100.0, device=cuda),
                            hw, max_per_tile=512, max_tiles_per_gaussian=8)
     grads = torch.autograd.grad((out.color**2).mean(), (leaves["raw"], leaves["depths"]))
     torch.cuda.synchronize()
-    assert (composite.launches, composite.backward_launches) == (before[0] + 1, before[1] + 1)
+    assert launches() == (before[0] + 1, before[1] + 2)
     assert float(out.alpha.detach().max()) > 0.5
     assert all(bool(torch.isfinite(g).all()) and bool((g != 0).any()) for g in grads)
 
@@ -709,9 +719,9 @@ def test_serve_on_the_card_through_either_compositor(cuda, capsys):
     model = common.serving_model(cuda, common.TINY)
     records = {}
     for impl in ("pallas", "jnp"):
-        before = composite.launches
+        before = launches()[0]
         records[impl] = serve.main(["--tiny", "--iters", "2", "--impl", impl], model=model)
-        records[impl]["launched"] = composite.launches - before
+        records[impl]["launched"] = launches()[0] - before
         assert json.loads(capsys.readouterr().out.strip().splitlines()[-1])["metric"] == records[impl]["metric"]
     assert records["pallas"]["live_pairs_max"] == records["jnp"]["live_pairs_max"]
     assert records["pallas"]["pair_slots"] == records["jnp"]["pair_slots"]
@@ -752,14 +762,14 @@ def test_overfit_colmap_on_the_card_through_either_compositor(cuda, tmp_path, mo
     launched, records = {}, {}
     for route in ("kernels", "plain"):
         current["route"] = route
-        before = (composite.launches, composite.backward_launches)
+        before = launches()
         with plain_compositor() if route == "plain" else contextlib.nullcontext():
             records[route] = oc.main(["--scene-dir", str(scene), "--model", "tiny", "--size", "64", "--steps", "2",
                                       "--eval-every", "2", "--gap-min", "2", "--gap-max", "5",
                                       "--output", str(tmp_path / f"{route}.json")])
-        launched[route] = (composite.launches - before[0], composite.backward_launches - before[1])
+        launched[route] = (launches()[0] - before[0], launches()[1] - before[1])
     held_out = records["kernels"]["held_out"]
-    assert launched == {"kernels": (2 + held_out, 2), "plain": (0, 0)}
+    assert launched == {"kernels": (2 + held_out, 4), "plain": (0, 0)}
     (loss_k, live_k), (loss_p, live_p) = first["kernels"], first["plain"]
     assert np.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-4 * abs(loss_p)
     assert live_k == live_p > 0

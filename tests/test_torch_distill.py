@@ -359,6 +359,7 @@ def test_main_runs_the_distillation_stage(chunk_root, tmp_path, capsys):
     steps = [r for r in records if "loss" in r]
     assert [r["step"] for r in steps] == [1, 2]
     assert all(r["distill"] == r["loss"] > 0 and "grad_norm" in r for r in steps)
+    assert all(r["step_ms"] >= r["forward_ms"] >= r["teacher_ms"] > 0 for r in steps)  # the logged spans
     assert not any("val_psnr" in r or "validate_seconds" in r for r in records)
     assert not (out / "val_comparison").exists()
     assert sorted(p.name for p in (out / "checkpoints").iterdir()) == ["final.pt", "step_1.pt", "step_2.pt"]

@@ -85,6 +85,10 @@ def test_fit_takes_the_steps_and_logs_each(stage2_run):
         if "loss" in r:
             assert {"style", "identity", "grad_norm", "live_pairs", "pair_slots", "seconds_per_step",
                     "step_ms", "data_seconds"} <= r.keys() and np.isfinite(r["loss"])
+            # The logged step's spans (utils/trace.py), each inside the step.
+            spans = {k for k in r if k.endswith("_ms")}
+            assert {"forward_ms", "loss_ms", "backward_ms", "clip_ms", "adamw_ms", "encoder_ms", "render_ms"} <= spans
+            assert all(0 <= r[k] <= r["step_ms"] for k in spans)
     assert [r["step"] for r in records if "val_psnr" in r] == [2, 4]
     assert [r["step"] for r in records if "validate_seconds" in r] == [2, 4]
     assert [r["step"] for r in records if "checkpoint_seconds" in r] == [2, 4]
@@ -226,7 +230,8 @@ def test_main_resumes_exactly_where_the_run_stopped(chunk_root, tmp_path):
     assert not [t for t in threading.enumerate() if t.name == "batch-producer"]
 
     def logged(out):
-        return [{k: v for k, v in r.items() if k not in ("seconds_per_step", "step_ms", "data_seconds")}
+        # Host and device times, the step's spans among them, differ run to run.
+        return [{k: v for k, v in r.items() if k not in ("seconds_per_step", "data_seconds") and not k.endswith("_ms")}
                 for r in _records(out) if "loss" in r]
 
     assert logged(part) == logged(whole)  # steps 1-2, then the resumed 3-4
