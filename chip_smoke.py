@@ -33,7 +33,13 @@ fails:
      decoders, random weights from a seed, bf16 backbone/stylizer and DPT
      trunks stored in bf16) serves three 2-view 256^2 scenes through
      Styl3rModel.forward; the forward compositor must have been launched
-     once a scene; then it is held against its plain version on the path's
+     once a scene; one more forward must launch the RoPE kernel once for
+     each of the model's RoPE attentions (120), and on each of their own
+     q/k the kernel must equal apply_rope2d on the card bitwise (any gap
+     printed in ulp before it fails); then it is timed at the
+     serving and stage-0 shapes against its byte bound, with the host's
+     time a call and its gradient against autograd through apply_rope2d;
+     the compositor is held against its plain version on the path's
      own inputs, and the forward is timed by bench/serve.py's measure: 10
      forwards back to back (throughput), 10 each synchronised (latency,
      encoder and render), and the host syncs of one;
@@ -214,7 +220,12 @@ def kernel_launches():
 
 def launch_record():
     fwd, bwd = kernel_launches()
-    return {"composite_fwd": fwd, "composite_bwd": bwd}
+    return {"composite_fwd": fwd, "composite_bwd": bwd, "rope2d": trace.counters()["rope_launches"]}
+
+
+def compositor_launches(record):
+    """(forward, backward) compositor launches of a launch_record()."""
+    return record["composite_fwd"], record["composite_bwd"]
 
 def log(msg):
     print(msg, flush=True)
@@ -1701,7 +1712,7 @@ def distill_phase(card, batch_size=2, steps=4, stage1_steps=3, hw=(256, 256)):
         stage0 = summary(res0)
         if res0["rec"]["val"] or res0["rec"]["validate"] or os.path.exists(os.path.join(out0, "val_comparison")):
             raise AssertionError("distill: stage 0 ran a validation")
-        if any(res0["launches"].values()):
+        if any(compositor_launches(res0["launches"])):
             raise AssertionError(f"distill: stage 0 launched the compositor {res0['launches']}")
         if any(set(r) & {"mse", "live_pairs"} for r in res0["rec"]["train"]):
             raise AssertionError("distill: stage 0 rendered")
@@ -2679,7 +2690,7 @@ def distributed_phase(card, batch_size=2, steps=4):
             raise AssertionError(f"distributed nccl fit: the step-{steps // 2} checkpoint {ckpt} from the "
                                  f"non-distributed fit's (bound {DIST_CKPT_TOL}), losses {fit['loss_rel_err']} from "
                                  f"its (bound {RESUME_TOL} to step {steps // 2})")
-        if fit["launches"] != {"composite_fwd": steps, "composite_bwd": 2 * steps}:
+        if compositor_launches(fit["launches"]) != (steps, 2 * steps) or not fit["launches"]["rope2d"]:
             raise AssertionError(f"distributed nccl fit: launches {fit['launches']}, expected {steps} calls of each")
         log(f"distributed nccl fit: train.main on re10k_2view_nvs.yaml under torchrun's environment at world size 1 "
             f"(NCCL), b = {batch_size}, {steps // 2} steps and a resume to step {steps} in {nccl_s:.1f} s (the "
@@ -2707,7 +2718,7 @@ def distributed_phase(card, batch_size=2, steps=4):
                 res = rank[stage]
                 if not res["ranks_equal"]:
                     raise AssertionError(f"distributed gloo {stage}: the ranks' weights differ after the step")
-                if res["launches"] != {"composite_fwd": per_step, "composite_bwd": 2 * per_step}:
+                if compositor_launches(res["launches"]) != (per_step, 2 * per_step) or not res["launches"]["rope2d"]:
                     raise AssertionError(f"distributed gloo {stage} rank {r}: launches {res['launches']}")
             res, other = gloo[0][stage], gloo[1][stage]
             log(f"distributed gloo {stage}: 2 ranks sharing the card, b = 1 a rank of a global 2: "
@@ -2737,7 +2748,7 @@ def distributed_phase(card, batch_size=2, steps=4):
         t0 = time.perf_counter()
         tp, = run_ranks("tp_step", 1, {}, tmp)
         tp_s = time.perf_counter() - t0
-        if tp["launches"] != {"composite_fwd": 1, "composite_bwd": 2} or not tp["dtensor_params"]:
+        if compositor_launches(tp["launches"]) != (1, 2) or not tp["launches"]["rope2d"] or not tp["dtensor_params"]:
             raise AssertionError(f"distributed tp: launches {tp['launches']}, {tp['dtensor_params']} DTensor params")
         log(f"distributed tp: stage-1 step of the full-width model on a (1, 1) (data, model) mesh over NCCL, "
             f"{tp['dtensor_params']} of {tp['params']} parameters DTensors, b = 2: {tp['ms']:.2f} ms (unsharded "
@@ -3092,6 +3103,162 @@ def bwd_time_line(what, res, card):
         f"phases are on walked windows")
 
 
+def ulp_gap(a, b):
+    """Elementwise distance of two same-typed float tensors in units in the
+    last place of their type (0 where bitwise equal, +0 and -0 alike)."""
+    import torch
+
+    bits = {torch.float32: (torch.int32, 0x7FFFFFFF), torch.bfloat16: (torch.int16, 0x7FFF)}[a.dtype]
+
+    def ordered(x):
+        i = x.contiguous().view(bits[0]).long()
+        return torch.where(i < 0, -(i & bits[1]), i)
+
+    return (ordered(a) - ordered(b)).abs()
+
+
+def rope_attentions(model):
+    """The model's attentions that rotate q and k: one RoPE kernel launch
+    each a forward."""
+    from styl3r_tpu_torch.models.vit import Attention, CrossAttention
+
+    return [m for m in model.modules() if isinstance(m, (Attention, CrossAttention)) and m.rope_base is not None]
+
+
+def rope_shapes(dev):
+    """(name, q, qpos, k, kpos) at the main path's RoPE shapes, 256^2 (16 x
+    16 tokens and the intrinsics token, 257 a view): q and k of an
+    Attention are views of its qkv output, as the model makes them."""
+    import torch
+
+    from styl3r_tpu_torch.models.vit import token_grid_positions
+
+    gen = torch.Generator(dev).manual_seed(0)
+
+    def pos(b, views=1, extra=True):
+        p = token_grid_positions(16, 16, dev)
+        if extra:
+            p = torch.cat([p, torch.tensor([[16, 0]], dtype=torch.int32, device=dev)])
+        return p.repeat(views, 1)[None].expand(b, -1, -1)
+
+    def self_attn(b, n, heads, dtype, p):
+        qkv = torch.randn(b, n, 3 * heads * 64, generator=gen, device=dev).to(dtype)
+        q, k, _ = qkv.reshape(b, n, 3, heads, 64).unbind(2)
+        return q, p, k, p
+
+    def cross(b, nq, nk, heads, dtype, qp, kp):
+        return (torch.randn(b, nq, heads, 64, generator=gen, device=dev).to(dtype), qp,
+                torch.randn(b, nk, heads, 64, generator=gen, device=dev).to(dtype), kp)
+
+    bf16, f32 = torch.bfloat16, torch.float32
+    return [
+        ("serve encoder self-attention (2 views, 16x64, bf16)", *self_attn(2, 257, 16, bf16, pos(2))),
+        ("serve decoder self-attention (1 view, 12x64, bf16)", *self_attn(1, 257, 12, bf16, pos(1))),
+        ("serve decoder cross-attention (257 x 257, 12x64, bf16)", *cross(1, 257, 257, 12, bf16, pos(1), pos(1))),
+        ("serve stylizer cross-attention (514 x 256, 12x64, bf16)",
+         *cross(1, 514, 256, 12, bf16, pos(1, views=2), pos(1, extra=False))),
+        ("stage-0 student encoder self-attention (b = 8, 16 views, 16x64, bf16)", *self_attn(16, 257, 16, bf16, pos(16))),
+        ("stage-0 teacher encoder self-attention (16 views, 16x64, f32)",
+         *self_attn(16, 256, 16, f32, pos(16, extra=False))),
+    ]
+
+
+def rope_phase(model, batch, hw, render_kwargs, card, calls=2000):
+    """RoPE2D on the serving path: over one forward the kernel launches once
+    for each RoPE attention the model holds (each runs once), and on each
+    call's own q/k the kernel equals apply_rope2d run on the card bitwise;
+    then, at rope_shapes(), the kernel's device time against its byte bound
+    (q and k read and written once, positions read once), the call's time,
+    the plain version's, the host's time a call and the gradient against
+    autograd through apply_rope2d."""
+    import torch
+
+    from styl3r_tpu_torch.models import vit
+    from styl3r_tpu_torch.ops import rope
+
+    attns = rope_attentions(model)
+    ran, seen = [], []
+    hooks = [m.register_forward_hook(lambda m, a, o: ran.append(m)) for m in attns]
+    kernel_qk = vit.rope2d_qk
+
+    def record(*args):
+        seen.append(args)
+        return kernel_qk(*args)
+
+    vit.rope2d_qk = record
+    try:
+        before = trace.counters()["rope_launches"]
+        with torch.inference_mode():
+            model(batch, hw, **render_kwargs)
+        torch.cuda.synchronize()
+        launched = trace.counters()["rope_launches"] - before
+    finally:
+        vit.rope2d_qk = kernel_qk
+        for h in hooks:
+            h.remove()
+    if not launched == len(ran) == len(attns) == len(seen) or len(set(map(id, ran))) != len(attns):
+        raise AssertionError(f"rope: {launched} kernel launches over one serving forward, {len(ran)} RoPE attention "
+                             f"calls of the model's {len(attns)}")
+    gaps, values, unequal = [], 0, 0
+    with torch.inference_mode():
+        for q, qpos, k, kpos, base in seen:
+            for ours, (x, p) in zip(kernel_qk(q, qpos, k, kpos, base), ((q, qpos), (k, kpos))):
+                gap = ulp_gap(ours, rope.apply_rope2d(x, p, base))
+                gaps.append(int(gap.max()))
+                values += gap.numel()
+                unequal += int((gap > 0).sum())
+    log(f"rope: one serving forward launched the kernel {launched} times, once for each of the model's "
+        f"{len(attns)} RoPE attentions; on their own q/k the kernel against apply_rope2d on the card: "
+        f"{unequal} of {values} values differ, by at most {max(gaps)} ulp")
+    res = dict(launches_per_forward=launched, rope_attentions=len(attns), values=values, unequal=unequal,
+               max_ulp=max(gaps), shapes=[])
+
+    def host_us(fn, n):
+        """Host microseconds a call of fn, n calls back to back (the device
+        keeps up: a kernel lasts a few microseconds)."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    for name, q, qpos, k, kpos in rope_shapes(next(model.parameters()).device):
+        n_bytes = sum(2 * x.numel() * x.element_size() + p.numel() * 4 for x, p in ((q, qpos), (k, kpos)))
+        bound_ms = n_bytes / 3.35e12 * 1e3
+        with torch.inference_mode():
+            ms, _, shapes = kernel_device_ms(lambda: rope.rope2d_qk(q, qpos, k, kpos), 50, ("rope2d_kernel",))
+            call_ms = cuda_ms(lambda: rope.rope2d_qk(q, qpos, k, kpos), 20)
+            plain_ms = cuda_ms(lambda: (rope.apply_rope2d(q, qpos), rope.apply_rope2d(k, kpos)), 20)
+            host = dict(kernel=host_us(lambda: rope.rope2d_qk(q, qpos, k, kpos), calls),
+                        plain=host_us(lambda: (rope.apply_rope2d(q, qpos), rope.apply_rope2d(k, kpos)), calls // 10))
+        # With grad: the autograd Function's forward, then its backward (the
+        # kernel run as the inverse rotation) against autograd through the
+        # plain version, for a seeded cotangent.
+        qg, kg = q.detach().clone().requires_grad_(), k.detach().clone().requires_grad_()
+        host["kernel_with_grad"] = host_us(lambda: rope.rope2d_qk(qg, qpos, kg, kpos), calls // 4)
+        gen = torch.Generator(q.device).manual_seed(1)
+        cot = [torch.randn(x.shape, generator=gen, device=q.device).to(x.dtype) for x in (q, k)]
+        before = trace.counters()["rope_launches"]
+        ours = torch.autograd.grad(rope.rope2d_qk(qg, qpos, kg, kpos), (qg, kg), cot)
+        if trace.counters()["rope_launches"] - before != 2:
+            raise AssertionError("rope: a forward and backward with grad did not launch the kernel twice")
+        plain = torch.autograd.grad((rope.apply_rope2d(qg, qpos), rope.apply_rope2d(kg, kpos)), (qg, kg), cot)
+        grad_ulp = max(int(ulp_gap(a, b).max()) for a, b in zip(ours, plain))
+        res["shapes"].append(dict(name=name, ms=ms, call_ms=call_ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                                  bound_by="bytes", roofline=bound_ms / ms, bytes=n_bytes, host_us=host,
+                                  grad_ulp=grad_ulp, launch=shapes["rope2d_kernel"]))
+        log(f"kernel rope2d, {name}: {ms * 1e3:.2f} us on the device against its byte bound {bound_ms * 1e3:.2f} us "
+            f"({100 * bound_ms / ms:.1f}%, {n_bytes} bytes), a call {call_ms * 1e3:.1f} us, the plain version "
+            f"{plain_ms * 1e3:.1f} us; host a call back to back {host['kernel']:.1f} us (with grad "
+            f"{host['kernel_with_grad']:.1f}, plain {host['plain']:.1f}); gradient against autograd through the "
+            f"plain version at most {grad_ulp} ulp; launch {shapes['rope2d_kernel']} [{card}]")
+    if res["max_ulp"] or any(s["grad_ulp"] for s in res["shapes"]):
+        raise AssertionError(f"rope: kernel not bitwise equal to the plain version: {res}")
+    return res
+
+
 def main():
     import torch
 
@@ -3186,6 +3353,7 @@ def main():
     launches = {"serve": launch_record()}
     if launches["serve"]["composite_fwd"] == 0:
         raise AssertionError("kernel composite_fwd was not launched on the serving path")
+    rope_res = rope_phase(model, batch, hw, render_kwargs, card)
 
     with torch.inference_mode():
         # batch[2:6]: the target cameras (extrinsics, intrinsics, near, far).
@@ -3356,6 +3524,12 @@ def main():
 
     reference_phase(card)
 
+    # Every path that runs a model on the card rotates q and k in the kernel.
+    rope_launches = {path: v["rope2d"] for path, v in launches.items() if "rope2d" in v}
+    for path in ("serve", "fit", "distill_stage0", "distill_stage1", "bench_serve", "bench_train"):
+        if not rope_launches[path]:
+            raise AssertionError(f"kernel rope2d was not launched by {path}")
+
     def numbers(res):
         return {k: res[k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by", "evals")}
 
@@ -3439,6 +3613,17 @@ def main():
             "posed_inputs": bwd_numbers(posed["bwd"]),
             "bench_train_128_inputs": bwd_numbers(bench["bwd"]),
             "overfit_colmap_inputs": bwd_numbers(overfit["bwd"]),
+        },
+        {
+            "name": "rope2d",
+            "route": "cuda",
+            "source": "styl3r_tpu_torch/csrc/rope2d.cu",
+            "replaces": None,  # the JAX package leaves RoPE2D to XLA (styl3r_tpu/ops/rope.py)
+            "launches": sum(rope_launches.values()),
+            "launches_by_path": rope_launches,
+            **{k: rope_res["shapes"][0][k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")},
+            "library_ms": None,
+            **rope_res,
         },
     ]
     training = {f"stage{i}": {k: st[k] for k in ("ms", "examples_per_s", "peak_gib", "live_pairs")}

@@ -16,7 +16,7 @@ import torch.nn.functional as F
 from torch import Tensor
 
 from ..ops.attention import dot_product_attention
-from ..ops.rope import apply_rope2d
+from ..ops.rope import rope2d_qk
 from ..utils import trace
 
 
@@ -55,8 +55,7 @@ class Attention(nn.Module):
         q, k, v = self.qkv(x).reshape(b, n, 3, self.num_heads, self.head_dim).unbind(2)
         if self.rope_base is not None:
             with trace.span("rope"):
-                q = apply_rope2d(q, pos, self.rope_base)
-                k = apply_rope2d(k, pos, self.rope_base)
+                q, k = rope2d_qk(q, pos, k, pos, self.rope_base)
         out = dot_product_attention(q, k, v, scale=self.head_dim**-0.5)
         return self.proj(out.reshape(b, n, self.num_heads * self.head_dim))
 
@@ -89,10 +88,7 @@ class CrossAttention(nn.Module):
         v = self.projv(value).reshape(b, value.shape[1], heads, head_dim)
         if self.rope_base is not None:
             with trace.span("rope"):
-                if qpos is not None:
-                    q = apply_rope2d(q, qpos, self.rope_base)
-                if kpos is not None:
-                    k = apply_rope2d(k, kpos, self.rope_base)
+                q, k = rope2d_qk(q, qpos, k, kpos, self.rope_base)
         out = dot_product_attention(q, k, v, scale=head_dim**-0.5)
         return self.proj(out.reshape(b, nq, heads * head_dim))
 

@@ -4,9 +4,9 @@ Each `csrc/<name>.cu` exposes a plain C interface and is compiled by nvcc
 into its own shared library, loaded with ctypes. Libraries go into
 `styl3r_tpu_torch/_build/` (ignored by git), named by a hash of their source,
 so an edited source is rebuilt and a built one is reused. Nothing here runs
-at import time: the first wrapper call builds what it needs, and
-`build(KERNELS)` builds every kernel at once, one nvcc process per source,
-all started together.
+at import time: the first wrapper call builds every kernel not yet built,
+as `build(KERNELS)` does, one nvcc process per source, all started
+together.
 """
 
 from __future__ import annotations
@@ -40,6 +40,9 @@ KERNEL_FLAGS = {
     # (scripts/composite_fwd_variants.py, PERF.md).
     "composite_fwd": ("-maxrregcount=40",),
     "composite_bwd": (),
+    # Rounds every product and sum with __fmul_rn / __fadd_rn (never
+    # contracted), as PyTorch's separate elementwise ops round them.
+    "rope2d": (),
 }
 
 # Every kernel source under csrc/, by name.
@@ -97,8 +100,10 @@ def build(names: Sequence[str] = KERNELS) -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The kernel library `name`, built first if needed."""
+    """The kernel library `name`. The first load builds every kernel not yet
+    built, all in parallel, so the path's later kernels cost no serial
+    compile."""
     if name not in _loaded:
-        build([name])
+        build(KERNELS)
         _loaded[name] = ctypes.CDLL(str(library_path(name)))
     return _loaded[name]

@@ -55,6 +55,7 @@ SPANS = (
 COUNTERS = (
     "composite_fwd_launches",  # launches of csrc/composite_fwd.cu's kernel
     "composite_bwd_launches",  # launches of csrc/composite_bwd.cu's kernels (two a call)
+    "rope_launches",  # launches of csrc/rope2d.cu's kernel (forward and backward, one each a call)
 )
 
 _depth = 0  # open enabled() scopes

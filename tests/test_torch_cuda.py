@@ -774,3 +774,146 @@ def test_overfit_colmap_on_the_card_through_either_compositor(cuda, tmp_path, mo
     assert np.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-4 * abs(loss_p)
     assert live_k == live_p > 0
     assert records["kernels"]["backend"] == "cuda" and records["kernels"]["card"]
+
+
+# -- RoPE2D: csrc/rope2d.cu against ops/rope.py::apply_rope2d on the card ----
+# The kernel rounds as the plain version's separate elementwise ops do (the
+# same cosf/sinf, each product rounded to the token type before the sum), so
+# forward and gradient must be bitwise equal.
+
+
+def _rope_positions(device, b, views=1, extra=True):
+    """The (y, x) positions of `views` 16x16 token grids, each followed by
+    the intrinsics token at (16, 0) if `extra`, expanded over b (stride 0)."""
+    from styl3r_tpu_torch.models.vit import token_grid_positions
+
+    p = token_grid_positions(16, 16, device)
+    if extra:
+        p = torch.cat([p, torch.tensor([[16, 0]], dtype=torch.int32, device=device)])
+    return p.repeat(views, 1)[None].expand(b, -1, -1)
+
+
+def _rope_qk(device, case, dtype, heads, seed=0):
+    """(q, qpos, k, kpos) at the serving shapes: "self" q and k of an
+    Attention, strided views of its qkv output over b·v = 2 rows of 257
+    tokens; "cross" the stylizer's cross-attention, 514 content tokens
+    against 256 style tokens."""
+    g = torch.Generator(device).manual_seed(seed)
+    if case == "self":
+        qkv = torch.randn(2, 257, 3 * heads * 64, generator=g, device=device).to(dtype)
+        q, k, _ = qkv.reshape(2, 257, 3, heads, 64).unbind(2)
+        pos = _rope_positions(device, 2)
+        return q, pos, k, pos
+    q = torch.randn(1, 514, heads, 64, generator=g, device=device).to(dtype)
+    k = torch.randn(1, 256, heads, 64, generator=g, device=device).to(dtype)
+    return q, _rope_positions(device, 1, views=2), k, _rope_positions(device, 1, extra=False)
+
+
+def rope_launches():
+    return trace.counters()["rope_launches"]
+
+
+@pytest.mark.parametrize("case", ["self", "cross"])
+@pytest.mark.parametrize("heads", [16, 12])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rope_kernel_matches_plain(cuda, dtype, heads, case):
+    from styl3r_tpu_torch.ops import rope
+
+    q, qpos, k, kpos = _rope_qk(cuda, case, dtype, heads)
+    before = rope_launches()
+    with torch.no_grad():
+        ours = rope.rope2d_qk(q, qpos, k, kpos)
+        one_side = rope.rope2d_qk(q, None, k, kpos)
+    torch.cuda.synchronize()
+    assert rope_launches() == before + 2
+    assert torch.equal(ours[0], rope.apply_rope2d(q, qpos))
+    assert torch.equal(ours[1], rope.apply_rope2d(k, kpos))
+    assert one_side[0] is q and torch.equal(one_side[1], ours[1])
+    assert all(x.is_contiguous() and x.dtype == dtype for x in ours)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_rope_backward_matches_autograd_through_plain(cuda, dtype):
+    """The gradient (the kernel as the inverse rotation) is autograd's
+    through apply_rope2d, for q and k of one qkv and for one side alone."""
+    from styl3r_tpu_torch.ops import rope
+
+    q, pos, k, _ = _rope_qk(cuda, "self", dtype, 16)
+    g = torch.Generator(cuda).manual_seed(1)
+    cot = [torch.randn(q.shape, generator=g, device=cuda).to(dtype) for _ in range(2)]
+    qg, kg = q.detach().clone().requires_grad_(), k.detach().clone().requires_grad_()
+    before = rope_launches()
+    ours = torch.autograd.grad(rope.rope2d_qk(qg, pos, kg, pos), (qg, kg), cot)
+    assert rope_launches() == before + 2
+    plain = torch.autograd.grad((rope.apply_rope2d(qg, pos), rope.apply_rope2d(kg, pos)), (qg, kg), cot)
+    assert all(torch.equal(a, b) for a, b in zip(ours, plain))
+    (dk,) = torch.autograd.grad(rope.rope2d_qk(q, None, kg, pos)[1], kg, cot[1])
+    assert torch.equal(dk, plain[1])
+
+
+@pytest.mark.parametrize("block", ["Block", "DecoderBlock"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_blocks_with_the_rope_kernel_match_plain(cuda, monkeypatch, dtype, block):
+    """A Block and a DecoderBlock (768 wide, 12 heads) forward and backward
+    on the card, RoPE through the kernel and through apply_rope2d: the same
+    outputs, and gradients within the card's run-to-run spread (the
+    attention's backward); one launch per RoPE attention forward and one per
+    backward."""
+    from styl3r_tpu_torch.models import vit
+    from styl3r_tpu_torch.ops.rope import apply_rope2d
+
+    torch.manual_seed(0)
+    module = getattr(vit, block)(768, 12, rope_base=100.0).to(cuda, dtype)
+    g = torch.Generator(cuda).manual_seed(2)
+    x = torch.randn(2, 257, 768, generator=g, device=cuda).to(dtype)
+    y = torch.randn(2, 257, 768, generator=g, device=cuda).to(dtype)
+    pos = _rope_positions(cuda, 2)
+    args = (x, pos) if block == "Block" else (x, y, pos, pos)
+    n_attn = 1 if block == "Block" else 2
+
+    def run():
+        out = module(*args)
+        out = out if block == "Block" else out[0]
+        grads = torch.autograd.grad((out.float() ** 2).mean(), list(module.parameters()))
+        return out.detach(), grads
+
+    before = rope_launches()
+    ours = run()
+    torch.cuda.synchronize()
+    assert rope_launches() == before + 2 * n_attn
+
+    def plain_qk(q, qpos, k, kpos, base):
+        return (q if qpos is None else apply_rope2d(q, qpos, base), k if kpos is None else apply_rope2d(k, kpos, base))
+
+    monkeypatch.setattr(vit, "rope2d_qk", plain_qk)
+    before = rope_launches()
+    plain = run()
+    assert rope_launches() == before
+    assert torch.equal(ours[0], plain[0])
+    for a, b in zip(ours[1], plain[1]):
+        torch.testing.assert_close(a, b)
+
+
+@pytest.mark.parametrize("bad", ["i64_pos", "head_dim_6", "strided_last_dim", "cpu_pos", "f64_tokens",
+                                 "heads_differ"])
+def test_rope_wrapper_rejects_what_the_kernel_does_not_take(cuda, bad):
+    from styl3r_tpu_torch.ops import rope
+
+    q, qpos, k, kpos = _rope_qk(cuda, "cross", torch.bfloat16, 12)
+    if bad == "i64_pos":
+        qpos = qpos.long()
+    elif bad == "head_dim_6":
+        q, k = q[..., :6].contiguous(), k[..., :6].contiguous()
+    elif bad == "strided_last_dim":
+        q = q[..., ::2]
+        k = k[..., ::2]
+    elif bad == "cpu_pos":
+        kpos = kpos.cpu()
+    elif bad == "f64_tokens":
+        q, k = q.double(), k.double()
+    else:
+        k = k[:, :, :6]
+    before = rope_launches()
+    with pytest.raises(ValueError):
+        rope.rope2d_qk(q, qpos, k, kpos)
+    assert rope_launches() == before

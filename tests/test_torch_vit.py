@@ -8,6 +8,7 @@ CPU: the same math in another summation order."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from styl3r_tpu.models import croco as jc
@@ -16,9 +17,10 @@ from styl3r_tpu.ops.attention import dot_product_attention as j_attention
 from styl3r_tpu.ops.rope import apply_rope2d as j_rope
 from styl3r_tpu_torch.models import croco as tc
 from styl3r_tpu_torch.models import vit as tv
+from styl3r_tpu_torch.ops import rope as t_rope_mod
 from styl3r_tpu_torch.ops.attention import dot_product_attention as t_attention
 from styl3r_tpu_torch.ops.rope import apply_rope2d as t_rope
-from styl3r_tpu_torch.utils import convert
+from styl3r_tpu_torch.utils import convert, trace
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 DIMS = dict(enc_dim=32, dec_dim=16, enc_heads=2, dec_heads=2)
@@ -57,6 +59,93 @@ def test_rope2d():
     x = rng.normal(size=(2, 12, 2, 16)).astype(np.float32)
     pos = rng.integers(0, 9, size=(2, 12, 2)).astype(np.int32)
     _close(t_rope(torch.from_numpy(x), torch.from_numpy(pos)), j_rope(jnp.asarray(x), jnp.asarray(pos)))
+
+
+def _rope_qk_case(case, rng):
+    """(q, qpos, k, kpos) as numpy arrays, and q/k as the torch tensors the
+    wrapper gets: "qkv_unbind" strided q/k of an Attention's qkv output;
+    "expanded" grid positions with the extra token at (h/p, 0), expanded
+    over the batch (stride 0); "cross" nq != nk; "no_qpos"/"no_kpos" a side
+    left as it is."""
+    b, heads, d = 2, 2, 16
+    if case == "qkv_unbind":
+        qkv = rng.normal(size=(b, 7, 3 * heads * d)).astype(np.float32)
+        q, k, _ = torch.from_numpy(qkv).reshape(b, 7, 3, heads, d).unbind(2)
+        pos = rng.integers(0, 9, size=(b, 7, 2)).astype(np.int32)
+        return q, pos, k, pos
+    nq, nk = (6, 9) if case == "cross" else (7, 7)
+    q, k = (torch.from_numpy(rng.normal(size=(b, n, heads, d)).astype(np.float32)) for n in (nq, nk))
+    if case == "expanded":
+        grid = np.concatenate([np.asarray(jv.token_grid_positions(2, 3)), [[2, 0]]]).astype(np.int32)
+        pos = np.broadcast_to(grid[None], (b, 7, 2))
+        return q, pos, k, pos
+    qpos, kpos = (rng.integers(0, 9, size=(b, n, 2)).astype(np.int32) for n in (nq, nk))
+    return q, None if case == "no_qpos" else qpos, k, None if case == "no_kpos" else kpos
+
+
+@pytest.mark.parametrize("case", ["qkv_unbind", "expanded", "cross", "no_qpos", "no_kpos"])
+def test_rope2d_qk_on_the_cpu(case):
+    """The q/k wrapper on CPU tensors is apply_rope2d on each side (and
+    JAX's apply_rope2d), launches no kernel, and leaves a side without
+    positions as it is."""
+    q, qpos, k, kpos = _rope_qk_case(case, np.random.default_rng(11))
+    if case == "expanded":
+        expanded = torch.from_numpy(qpos[:1].copy()).expand(2, -1, -1)
+    else:
+        expanded = None if qpos is None else torch.from_numpy(qpos)
+    kpos_t = expanded if case in ("qkv_unbind", "expanded") else None if kpos is None else torch.from_numpy(kpos)
+    before = trace.counters()["rope_launches"]
+    outs = t_rope_mod.rope2d_qk(q, expanded, k, kpos_t)
+    assert trace.counters()["rope_launches"] == before
+    for out, x, p, p_np in zip(outs, (q, k), (expanded, kpos_t), (qpos, kpos)):
+        if p is None:
+            assert out is x
+            continue
+        assert torch.equal(out, t_rope(x, p))
+        _close(out, j_rope(jnp.asarray(x.numpy()), jnp.asarray(p_np)))
+
+
+@pytest.mark.parametrize("bad", ["i64_pos", "head_dim_6"])
+def test_rope2d_qk_rejects_what_the_kernel_does_not_take(bad):
+    q, qpos, k, kpos = _rope_qk_case("cross", np.random.default_rng(12))
+    qpos, kpos = torch.from_numpy(qpos), torch.from_numpy(kpos)
+    if bad == "i64_pos":
+        kpos = kpos.long()
+    else:
+        q, k = q[..., :6].contiguous(), k[..., :6].contiguous()
+    with pytest.raises(ValueError):
+        t_rope_mod.rope2d_qk(q, qpos, k, kpos)
+
+
+@pytest.mark.parametrize("wants", ["both", "q", "k"])
+def test_rope2d_gradient_is_the_inverse_rotation(monkeypatch, wants):
+    """The autograd Function around the kernel, with the launch played on
+    the CPU by apply_rope2d (the inverse rotation as the negated angle):
+    outputs and gradients are autograd's through apply_rope2d, for the
+    sides that want a gradient, and one launch each way."""
+    def launch(base, inverse, x, pos, y=None, ypos=None):
+        trace.count("rope_launches")
+        sign = -1 if inverse else 1
+        return t_rope(x, sign * pos, base), None if y is None else t_rope(y, sign * ypos, base)
+
+    monkeypatch.setattr(t_rope_mod, "_launch", launch)
+    rng = np.random.default_rng(13)
+    q, qpos, k, kpos = _rope_qk_case("cross", rng)
+    qpos, kpos = torch.from_numpy(qpos), torch.from_numpy(kpos)
+    q.requires_grad_(wants in ("both", "q"))
+    k.requires_grad_(wants in ("both", "k"))
+    cot = [torch.from_numpy(rng.normal(size=x.shape).astype(np.float32)) for x in (q, k)]
+    leaves = [x for x in (q, k) if x.requires_grad]
+    before = trace.counters()["rope_launches"]
+    def grads(outs):
+        return torch.autograd.grad(sum((o * c).sum() for o, c in zip(outs, cot)), leaves)
+
+    outs = t_rope_mod._Rope2D.apply(100.0, q, qpos, k, kpos)
+    ours = grads(outs)
+    assert trace.counters()["rope_launches"] == before + 2
+    plain_outs = (t_rope(q, qpos), t_rope(k, kpos))
+    assert all(torch.equal(a, b) for a, b in zip(outs, plain_outs))
+    assert all(torch.equal(a, b) for a, b in zip(ours, grads(plain_outs)))
 
 
 def test_attention():
