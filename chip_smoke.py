@@ -165,7 +165,15 @@ fails:
      time and plain version's time (CUDA events), beside its bound;
  17. reference: a tiny-width model's Gaussians on the card agree with the
      same model's on the CPU (whose agreement with the JAX package the CPU
-     tests show).
+     tests show);
+ 18. VGGT: VGGT-1B (models/vggt.py) at its published widths with random
+     weights, one forward of 32 frames of 518x392 and one of 2 (each after a
+     warm-up): its kernel launches, RoPE launches (2 x depth = 48 a forward,
+     or the phase fails), the SDPA backend its aggregator's attention took
+     (from the kernels' names; the math backend fails the phase), the peak
+     memory and the latency, and each output's relative L2 gap from the
+     plain float32 reference (tests/vggt_reference.py) on the same weights
+     and images.
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -3259,6 +3267,119 @@ def rope_phase(model, batch, hw, render_kwargs, card, calls=2000):
     return res
 
 
+def sdpa_backend(kernel_names):
+    """The SDPA backend a forward's attention kernels name: cudnn, flash or
+    efficient; "math" where none of theirs ran."""
+    names = " ".join(kernel_names).lower()
+    if "cudnn" in names and "sdpa" in names:
+        return "cudnn"
+    if "flash" in names:
+        return "flash"
+    return "efficient" if "fmha" in names else "math"
+
+
+def vggt_phase(card, dev, frame_counts=(32, 2), hw=(392, 518), seed=0, widths=None):
+    """VGGT-1B on the card (phase 18): for each frame count, a warm-up
+    forward in which every RoPE call's kernel output is compared bitwise
+    with apply_rope2d on its own float32 q/k (the frame and global blocks'
+    shapes, the special tokens at (0, 0)); a forward profiled (kernel
+    launches, the SDPA backend) and timed (CUDA events, 3 forwards), with
+    its RoPE launches and peak memory; then the outputs against the plain
+    float32 reference on the same weights and images, each relative L2 held
+    to the vggt.serve-32f518 cell's limit. `widths` replaces VGGT-1B's (a
+    tiny model for a CPU rehearsal)."""
+    import importlib.util
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from styl3r_tpu_torch.models import vit
+    from styl3r_tpu_torch.models.registry import get_model
+    from styl3r_tpu_torch.models.vggt import VGGT_1B
+    from styl3r_tpu_torch.ops import rope
+
+    spec = importlib.util.spec_from_file_location("vggt_reference", os.path.join(ROOT, "tests", "vggt_reference.py"))
+    reference = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reference)
+    w = dict(VGGT_1B, **(widths or {}))
+    cuda = dev.type == "cuda"
+    ref = reference.draw(seed, dev, **w)
+    model = get_model("vggt", **w, compute_dtype=torch.bfloat16 if cuda else None, device=dev, seed=seed + 1)
+    model.load_state_dict(ref.state_dict())
+    model.eval()
+    with open(os.path.join(ROOT, "portbench", "workloads", "vggt.serve-32f518.json")) as f:
+        limits = json.load(f)["check"]["limits"]
+    kernel_qk = vit.rope2d_qk
+
+    def checked_qk(q, qpos, k, kpos, base):
+        """The kernel's call, and its outputs against apply_rope2d in float32
+        on the same q/k (autocast off), bitwise."""
+        out = kernel_qk(q, qpos, k, kpos, base)
+        with torch.autocast(dev.type, enabled=False):
+            for ours, (x, p) in zip(out, ((q, qpos), (k, kpos))):
+                gap = ulp_gap(ours, rope.apply_rope2d(x, p, base))
+                rope_seen.append((tuple(x.shape), str(x.dtype).replace("torch.", ""), int((p == 0).all(-1).sum()),
+                                  x.numel(), int((gap > 0).sum()), int(gap.max())))
+        return out
+
+    res = {}
+    for s in frame_counts:
+        x = torch.rand(1, s, 3, *hw, generator=torch.Generator().manual_seed(s)).to(dev)
+        rope_seen = []
+        with torch.inference_mode():
+            vit.rope2d_qk = checked_qk
+            try:
+                model(x)
+            finally:
+                vit.rope2d_qk = kernel_qk
+            shapes = sorted({(shape, dtype, at_origin) for shape, dtype, at_origin, *_ in rope_seen})
+            unequal, max_ulp = sum(r[4] for r in rope_seen), max(r[5] for r in rope_seen)
+            log(f"vggt: {s} frames, RoPE kernel against apply_rope2d on the forward's own q/k: {len(rope_seen) // 2} "
+                f"calls at (shape, dtype, tokens at (0, 0)) {shapes}; {unequal} of {sum(r[3] for r in rope_seen)} "
+                f"values differ, by at most {max_ulp} ulp [{card}]")
+            if unequal or {dtype for _, dtype, _ in shapes} != {"float32"} or len(rope_seen) != 4 * w["depth"]:
+                raise AssertionError(f"vggt: RoPE kernel not bitwise equal to apply_rope2d on float32 q/k: {shapes}, "
+                                     f"{unequal} values differ, {len(rope_seen) // 2} calls")
+            if cuda:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats(dev)
+            before = trace.counters()["rope_launches"]
+            with profile(activities=[ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]) as prof:
+                out = model(x)
+                if cuda:
+                    torch.cuda.synchronize()
+            rope_launches = trace.counters()["rope_launches"] - before
+            names = [e.name for e in prof.events() if cuda and e.device_type.name == "CUDA"]
+            peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
+            ms = cuda_ms(lambda: model(x), 3) if cuda else None
+        backend = sdpa_backend(names) if cuda else "cpu"
+        with torch.no_grad():
+            want = ref(x)
+        gaps = {k: float((out[k] - want[k]).double().norm() / want[k].double().norm())
+                for k in ("pose_enc", "depth", "depth_conf", "world_points", "world_points_conf")}
+        checked = {"pose_rel_l2": gaps["pose_enc"], "depth_rel_l2": gaps["depth"],
+                   "points_rel_l2": gaps["world_points"],
+                   "conf_rel_l2": max(gaps["depth_conf"], gaps["world_points_conf"])}
+        res[f"{s}f"] = dict(frames=s, hw=list(hw), launches=len(names), rope_launches=rope_launches,
+                            sdpa_backend=backend, peak_gib=peak / 2**30, forward_ms=ms, rel_l2=gaps,
+                            rope_shapes=[list(x) for x in shapes])
+        log(f"vggt: {s} frames of {hw[1]}x{hw[0]}: {len(names)} kernel launches, {rope_launches} RoPE launches, "
+            f"SDPA backend {backend}, peak {peak / 2**30:.2f} GiB, a forward {ms} ms; relative L2 from the f32 "
+            f"reference {gaps}, against the cell's limits {limits} [{card}]")
+        if cuda and (rope_launches != 2 * w["depth"] or backend == "math"):
+            raise AssertionError(f"vggt: {rope_launches} RoPE launches (want {2 * w['depth']}), backend {backend}")
+        over = {k: v for k, v in checked.items() if not v <= limits[k]}
+        if over:
+            raise AssertionError(f"vggt: {s} frames: outputs off the f32 reference beyond the cell's limits: {over}, "
+                                 f"limits {limits}")
+        del out, want
+    del model, ref
+    gc.collect()
+    if cuda:
+        torch.cuda.empty_cache()
+    return res
+
+
 def main():
     import torch
 
@@ -3524,6 +3645,9 @@ def main():
 
     reference_phase(card)
 
+    # -- VGGT-1B: 32 and 2 frames at 518x392 -----------------------------------
+    vggt = vggt_phase(card, dev)
+
     # Every path that runs a model on the card rotates q and k in the kernel.
     rope_launches = {path: v["rope2d"] for path, v in launches.items() if "rope2d" in v}
     for path in ("serve", "fit", "distill_stage0", "distill_stage1", "bench_serve", "bench_train"):
@@ -3647,7 +3771,7 @@ def main():
     print(json.dumps({"kernels": kernels, "training": training, "inference": inference,
                       "evaluation": evaluation_summary, "fit": fit_summary, "distill": distill_summary,
                       "secondary": secondary_summary, "distributed": distributed_summary, "posed": posed_summary,
-                      "bench": bench_summary, "overfit_colmap": overfit_summary,
+                      "bench": bench_summary, "overfit_colmap": overfit_summary, "vggt": vggt,
                       "card": card}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),

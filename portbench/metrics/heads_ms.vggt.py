@@ -1,0 +1,9 @@
+"""VGGT's depth and point heads, their time a request: the `heads` span of
+styl3r_tpu_torch/utils/trace.py (CUDA events) summed over the profiled
+slice and divided by its requests, in ms."""
+
+from portbench.spans import span_ms
+
+
+def read(record):
+    return span_ms(record, "heads")

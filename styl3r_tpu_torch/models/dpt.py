@@ -60,33 +60,40 @@ def upsample2x(x: Tensor) -> Tensor:
 
 
 class ResidualConvUnit(nn.Module):
-    """relu-conv-relu-conv with skip (no BN)."""
+    """relu-conv-relu-conv with skip (no BN). With `relu_skip` the skip is
+    relu(x): VGGT's units apply an in-place ReLU to their input, so the
+    input they add back has been rectified."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, relu_skip: bool = False):
         super().__init__()
         self.conv1 = nn.Conv2d(features, features, 3, padding=1)
         self.conv2 = nn.Conv2d(features, features, 3, padding=1)
+        self.relu_skip = relu_skip
 
     def forward(self, x: Tensor) -> Tensor:
-        return self.conv2(F.relu(self.conv1(F.relu(x)))) + x
+        r = F.relu(x)
+        return self.conv2(F.relu(self.conv1(r))) + (r if self.relu_skip else x)
 
 
 class FeatureFusionBlock(nn.Module):
-    """Fuse a coarser path with a skip, upsample 2x, project 1x1. The
-    coarsest block has no skip and so no resConfUnit1."""
+    """Fuse a coarser path with a skip, upsample (2x, or to `size` where
+    given; align-corners bilinear), project 1x1. The coarsest block has no
+    skip and so no resConfUnit1."""
 
-    def __init__(self, features: int, has_skip: bool = True):
+    def __init__(self, features: int, has_skip: bool = True, relu_skip: bool = False):
         super().__init__()
         if has_skip:
-            self.resConfUnit1 = ResidualConvUnit(features)
-        self.resConfUnit2 = ResidualConvUnit(features)
+            self.resConfUnit1 = ResidualConvUnit(features, relu_skip)
+        self.resConfUnit2 = ResidualConvUnit(features, relu_skip)
         self.out_conv = nn.Conv2d(features, features, 1)
 
-    def forward(self, x: Tensor, res: Optional[Tensor] = None) -> Tensor:
+    def forward(self, x: Tensor, res: Optional[Tensor] = None, size: Optional[Tuple[int, int]] = None) -> Tensor:
         if res is not None:
             x = x + self.resConfUnit1(res)
         x = self.resConfUnit2(x)
-        return self.out_conv(upsample2x(x))
+        if size is None:
+            return self.out_conv(upsample2x(x))
+        return self.out_conv(F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=True))
 
 
 class DPTTrunk(nn.Module):

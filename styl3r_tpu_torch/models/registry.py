@@ -76,3 +76,13 @@ def get_distiller(name: str = "dust3r", **kwargs):
     if name in ("dust3r", "mast3r"):
         return Dust3RTeacher(**kwargs)
     raise ValueError(f"unknown distiller: {name}")
+
+
+def get_model(name: str, **kwargs):
+    """A whole model by name: 'vggt' (models/vggt.py; VGGT-1B's published
+    widths unless `kwargs` give others)."""
+    if name == "vggt":
+        from .vggt import VGGT
+
+        return VGGT(**kwargs)
+    raise ValueError(f"unknown model: {name}")

@@ -4,6 +4,12 @@ reference `src/model/encoder/backbone/croco/blocks.py`).
 Module and parameter names follow the reference's torch module tree, so a
 state dict carries the reference's key names. LayerNorm eps is 1e-6, GELU is
 the exact (erf) form and qkv has a bias.
+
+VGGT's blocks (models/vggt.py) add two options that CroCo's leave off:
+QK-norm (a LayerNorm over the head dim on q and on k, before RoPE; keys
+`attn.q_norm`, `attn.k_norm`) and LayerScale (a learned per-channel gain on
+each residual branch; keys `ls1.gamma`, `ls2.gamma`), and take the norms'
+eps. With both off a block computes exactly what it did without them.
 """
 
 from __future__ import annotations
@@ -36,23 +42,43 @@ class Mlp(nn.Module):
         return self.fc2(F.gelu(self.fc1(x)))
 
 
+class LayerScale(nn.Module):
+    """x * gamma, a learned gain per channel (DINOv2's and VGGT's)."""
+
+    def __init__(self, dim: int, init_value: float):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.full((dim,), float(init_value)))
+
+    def forward(self, x: Tensor) -> Tensor:
+        return x * self.gamma
+
+
 class Attention(nn.Module):
     """Self-attention with optional RoPE2D on q/k. The head width is fixed at
     construction and `num_heads` counts the heads this module computes: all
     of them, or this rank's under tensor parallelism (parallel/tp.py), where
-    qkv's rows hold [q | k | v] of those heads and proj takes their width."""
+    qkv's rows hold [q | k | v] of those heads and proj takes their width.
+    With `qk_norm`, q and k each pass a LayerNorm over the head dim (eps
+    `eps`) before RoPE."""
 
-    def __init__(self, dim: int, num_heads: int, rope_base: Optional[float] = None):
+    def __init__(self, dim: int, num_heads: int, rope_base: Optional[float] = None, qk_norm: bool = False,
+                 eps: float = 1e-6):
         super().__init__()
         self.num_heads = num_heads
         self.head_dim = dim // num_heads
         self.rope_base = rope_base
         self.qkv = nn.Linear(dim, dim * 3)
+        if qk_norm:
+            self.q_norm = nn.LayerNorm(self.head_dim, eps=eps)
+            self.k_norm = nn.LayerNorm(self.head_dim, eps=eps)
+        self.qk_norm = qk_norm
         self.proj = nn.Linear(dim, dim)
 
     def forward(self, x: Tensor, pos: Optional[Tensor]) -> Tensor:
         b, n, _ = x.shape
         q, k, v = self.qkv(x).reshape(b, n, 3, self.num_heads, self.head_dim).unbind(2)
+        if self.qk_norm:
+            q, k = self.q_norm(q), self.k_norm(k)
         if self.rope_base is not None:
             with trace.span("rope"):
                 q, k = rope2d_qk(q, pos, k, pos, self.rope_base)
@@ -94,19 +120,29 @@ class CrossAttention(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-norm encoder block: x + attn(ln(x)), x + mlp(ln(x))."""
+    """Pre-norm encoder block: x + attn(ln(x)), x + mlp(ln(x)); with
+    `init_values`, each branch is scaled by a LayerScale (ls1, ls2) started
+    at that value. `eps` is every LayerNorm's, QK-norm's too."""
 
     def __init__(
         self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-        rope_base: Optional[float] = None,
+        rope_base: Optional[float] = None, qk_norm: bool = False,
+        init_values: Optional[float] = None, eps: float = 1e-6,
     ):
         super().__init__()
-        self.norm1 = layer_norm(dim)
-        self.attn = Attention(dim, num_heads, rope_base)
-        self.norm2 = layer_norm(dim)
+        self.norm1 = nn.LayerNorm(dim, eps=eps)
+        self.attn = Attention(dim, num_heads, rope_base, qk_norm=qk_norm, eps=eps)
+        self.norm2 = nn.LayerNorm(dim, eps=eps)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+        self.layer_scale = init_values is not None
+        if self.layer_scale:
+            self.ls1 = LayerScale(dim, init_values)
+            self.ls2 = LayerScale(dim, init_values)
 
-    def forward(self, x: Tensor, pos: Optional[Tensor]) -> Tensor:
+    def forward(self, x: Tensor, pos: Optional[Tensor] = None) -> Tensor:
+        if self.layer_scale:
+            x = x + self.ls1(self.attn(self.norm1(x), pos))
+            return x + self.ls2(self.mlp(self.norm2(x)))
         x = x + self.attn(self.norm1(x), pos)
         return x + self.mlp(self.norm2(x))
 

@@ -56,9 +56,13 @@ def model_state_dict(path: str) -> Dict[str, torch.Tensor]:
 
 def load_checkpoint(model: nn.Module, path: str) -> nn.Module:
     """Load a torch checkpoint into `model` by key. The unused
-    refinenet4.resConfUnit1 entries are dropped; any other missing or
+    refinenet4.resConfUnit1 entries are dropped, and so are the keys under
+    the model's `IGNORED_KEY_PREFIXES` (VGGT's released `model.pt` holds its
+    tracking head, which models/vggt.py leaves out); any other missing or
     unexpected key raises."""
-    model.load_state_dict(model_state_dict(path), strict=True)
+    ignored = tuple(getattr(model, "IGNORED_KEY_PREFIXES", ()))
+    sd = model_state_dict(path)
+    model.load_state_dict({k: v for k, v in sd.items() if not (ignored and k.startswith(ignored))}, strict=True)
     return model
 
 

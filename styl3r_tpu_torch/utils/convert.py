@@ -341,8 +341,9 @@ def init_like_flax_(module: nn.Module, generator: torch.Generator) -> nn.Module:
 
     for m in module.modules():
         if isinstance(m, (nn.LayerNorm, nn.BatchNorm2d)):
-            m.weight.fill_(1.0)
-            m.bias.zero_()
+            if m.weight is not None:  # a LayerNorm without affine has nothing to draw
+                m.weight.fill_(1.0)
+                m.bias.zero_()
         elif isinstance(m, DinoViT):
             m.cls_token.zero_()
             nn.init.normal_(m.pos_embed, 0.0, 0.02, generator=generator)

@@ -50,6 +50,10 @@ SPANS = (
     "adamw",  # GroupedAdamW.step: AdamW and the schedule
     "allreduce",  # the data-parallel all-reduce of the gradients
     "step",  # the Trainer's call of the step function
+    "patch_embed",  # VGGT's DINOv2 patch embedding (models/vggt.py)
+    "frame_blocks",  # one of VGGT's frame-attention blocks
+    "global_blocks",  # one of VGGT's global-attention blocks
+    "camera_head",  # VGGT's camera head, its refinements together
 )
 
 COUNTERS = (
