@@ -42,7 +42,16 @@ fails:
      the compositor is held against its plain version on the path's
      own inputs, and the forward is timed by bench/serve.py's measure: 10
      forwards back to back (throughput), 10 each synchronised (latency,
-     encoder and render), and the host syncs of one;
+     encoder and render), and the host syncs of one; the three forwards
+     must launch the heads' 3x3 conv kernel (csrc/conv3x3_f32.cu) twice
+     each (the points heads' f32 head["2"]; the bf16 trunks bypass it);
+     then the conv kernel (conv_phase): against F.conv2d with TF32 off
+     (relative L2 at most 1e-5) at every routed head shape and ragged
+     ones, with and without bias and ReLU, two calls bitwise equal, its
+     gradient against F.conv2d's, no launch in bf16, under TF32 or
+     autocast; its device time at the three largest routed shapes and the
+     split-K levels against its f32 FFMA bound and cuDNN's f32 time
+     (library_ms);
   6. posed route: the serving model's raw Gaussian channels and densities
      for the example batch, as models/encoder.py::_adapt receives them, go
      through posed_gaussian_adapter (each context view's own camera, the
@@ -82,17 +91,19 @@ fails:
      131,072 Gaussians at 256^2 (the rotation error falls below 0.3x of its
      start in 200 steps), and both kernels are held on its first step's
      inputs too;
-  9. training, stage 1: the full-width model with f32 master weights, bf16
-     compute and scratch_init_heads; both kernels are held against their
+  9. training, stage 1: the full-width model with f32 master weights, a
+     bf16 backbone, f32 heads (the Trainer's) and scratch_init_heads; both
+     kernels are held against their
      plain versions on the path's own inputs (the backward with MSE
      cotangents); then 2 warm and 5 timed steps of make_train_step (MSE,
      make_optimizer) on b = 2 2-view 256^2 scenes, each of which launches
-     each compositor kernel once; the warm steps' gradients reach the
-     geometry heads;
+     each compositor kernel once and the heads' conv kernel 97 times (one
+     forward); the warm steps' gradients reach the geometry heads;
  10. training, stage 2: the same model, back at its scratch-initialized
      weights, and batch, make_stage2_optimizer and style 10 + identity with
-     VGG19 at random weights; every step launches
-     each kernel twice, leaves the frozen parameters bitwise unchanged and,
+     VGG19 at random weights; every step launches each compositor kernel
+     twice and the conv kernel 2 x 97 times (the main and the identity
+     forward), leaves the frozen parameters bitwise unchanged and,
      from the second step, changes the stylizer and the appearance head;
  11. training entry point: styl3r_tpu_torch.train.main.main on the paper's
      stage 2 (configs/experiment/re10k_3view_style.yaml, full width, 3
@@ -173,7 +184,11 @@ fails:
      (from the kernels' names; the math backend fails the phase), the peak
      memory and the latency, and each output's relative L2 gap from the
      plain float32 reference (tests/vggt_reference.py) on the same weights
-     and images.
+     and images; with cuDNN's TF32 allowed, as the vggt.serve-32f518 cell
+     runs, a request launches the conv kernel 0 times.
+Every path that runs the model on the card must launch the RoPE kernel,
+and the training paths with f32 heads (stage 1 and 2 above, the fit, stage
+0 of the distillation, bench.train_step) the heads' conv kernel.
 The line before the last is a JSON object with every kernel's numbers; the
 last line is {"ok": true, "device": {...}}.
 """
@@ -228,7 +243,8 @@ def kernel_launches():
 
 def launch_record():
     fwd, bwd = kernel_launches()
-    return {"composite_fwd": fwd, "composite_bwd": bwd, "rope2d": trace.counters()["rope_launches"]}
+    c = trace.counters()
+    return {"composite_fwd": fwd, "composite_bwd": bwd, "rope2d": c["rope_launches"], "conv3x3": c["conv3x3_launches"]}
 
 
 def compositor_launches(record):
@@ -1154,9 +1170,15 @@ def evaluation_phase(card, scenes=2, align_steps=100, refine_steps=200, hw=(256,
     )
 
 
+# The heads' routed 3x3 convs (ops/conv.py::conv3x3) in an encoder forward
+# with float32 heads: 2 pts3d heads x 20, 2 gs heads x 19, the appearance
+# head 19.
+CONV3X3_PER_FORWARD = 97
+
+
 def train_phase(model, batch, hw, render_kwargs, card, stage, reps=5, warm=2):
-    """Drive make_train_step on the full-width model: `warm` + `reps` steps,
-    each checked, the last `reps` timed with CUDA events."""
+    """Drive make_train_step on the full-width model (float32 heads): `warm`
+    + `reps` steps, each checked, the last `reps` timed with CUDA events."""
     import torch
 
     from styl3r_tpu_torch.losses.vgg import VGG19Features
@@ -1195,6 +1217,7 @@ def train_phase(model, batch, hw, render_kwargs, card, stage, reps=5, warm=2):
     times, losses, lives = [], [], []
     for i in range(warm + reps):
         fwd0, bwd0 = kernel_launches()
+        conv0 = trace.counters()["conv3x3_launches"]
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         metrics = step(state, batch, generator)
@@ -1214,6 +1237,10 @@ def train_phase(model, batch, hw, render_kwargs, card, stage, reps=5, warm=2):
         launched = (kernel_launches()[0] - fwd0, kernel_launches()[1] - bwd0)
         if launched != (per_step, 2 * per_step):
             raise AssertionError(f"{where}: compositor launches (fwd, bwd) {launched}, expected {per_step} calls of each")
+        convs = trace.counters()["conv3x3_launches"] - conv0
+        if convs != CONV3X3_PER_FORWARD * per_step:
+            raise AssertionError(f"{where}: {convs} launches of the heads' conv kernel, expected "
+                                 f"{CONV3X3_PER_FORWARD * per_step} ({per_step} forwards)")
         if stage == 1:
             # Held at the warm steps, whose render holds ~81 k live pairs:
             # later, Adam's first updates on random weights move the geometry
@@ -1238,9 +1265,11 @@ def train_phase(model, batch, hw, render_kwargs, card, stage, reps=5, warm=2):
     log(f"training stage {stage}: {ms:.2f} ms/step, {1e3 * b / ms:.3f} examples/s (median of {reps}, b = {b}), "
         f"peak memory {peak_gb:.2f} GiB; loss {losses[0]:.5f} -> {losses[-1]:.5f}, grad norm {gnorm:.4g}, "
         f"live pairs {lives[0]} at the first step, {min(timed_lives)}-{max(timed_lives)} in the timed steps, "
-        f"of {slots} slots; launches fwd {kernel_launches()[0]} bwd {kernel_launches()[1]} [{card}]")
+        f"of {slots} slots; launches fwd {kernel_launches()[0]} bwd {kernel_launches()[1]}, conv3x3 {convs} a step "
+        f"[{card}]")
     return dict(ms=ms, examples_per_s=1e3 * b / ms, peak_gib=peak_gb, fwd=kernel_launches()[0],
-                bwd=kernel_launches()[1], losses=losses, live_pairs=lives)
+                bwd=kernel_launches()[1], conv3x3=trace.counters()["conv3x3_launches"], conv3x3_per_step=convs,
+                losses=losses, live_pairs=lives)
 
 
 FIT_CONFIG = "configs/experiment/re10k_3view_style.yaml"
@@ -2435,16 +2464,18 @@ def reference_steps(model, stage, batch, hw, scratch, rerun=True, halves=False):
     return out + (({"loss": sum(losses) / 2, "grad_norm": tensors_norm(mean)}, mean),)
 
 
-def full_width_training_model(dev):
-    """The training phases' model: full width, f32 weights, bf16 compute,
+def full_width_training_model(dev, f32_heads=False):
+    """The training phases' model: full width, f32 weights, bf16 compute in
+    the backbone and, without `f32_heads`, in the heads' trunks (with it the
+    heads compute in float32, as the Trainer builds them),
     scratch_init_heads."""
     import torch
 
     from styl3r_tpu_torch.models.styl3r import Styl3rModel
     from styl3r_tpu_torch.train.scratch_init import scratch_init_heads
 
-    model = Styl3rModel(sh_degree=0, backbone_dtype=torch.bfloat16, head_trunk_dtype=torch.bfloat16, device=dev,
-                        seed=0)
+    model = Styl3rModel(sh_degree=0, backbone_dtype=torch.bfloat16,
+                        head_trunk_dtype=None if f32_heads else torch.bfloat16, device=dev, seed=0)
     scratch_init_heads(model)
     return model
 
@@ -3267,6 +3298,174 @@ def rope_phase(model, batch, hw, render_kwargs, card, calls=2000):
     return res
 
 
+# The DPT heads' routed 3x3 convs (ops/conv.py::conv3x3) as (images, cin,
+# cout, h, w): stage 2's at b = 6 over 3 views (the heads take 6, 12 and 18
+# images), the serving points heads' f32 head["2"] at b = 1 and 8, and
+# ragged sizes the heads never make.
+CONV_SHAPES = (
+    (6, 96, 256, 64, 64), (12, 192, 256, 32, 32), (18, 384, 256, 16, 16), (6, 768, 256, 8, 8),
+    (18, 256, 256, 8, 8), (6, 256, 256, 16, 16), (12, 256, 256, 32, 32), (18, 256, 256, 64, 64),
+    (6, 256, 128, 128, 128), (12, 128, 128, 256, 256), (1, 128, 128, 256, 256),
+    (3, 32, 96, 17, 23), (1, 256, 96, 17, 23), (2, 5, 7, 9, 11), (2, 16, 24, 1, 3),
+)
+# Timed against cuDNN: stage 2's Gaussian tower (head["0"], 256 -> 256 at
+# 256^2, 18 images), serving's head["2"] (128 -> 128 at 256^2) at
+# serve-2v256's b = 1 and batch-b8-2v256's 8 images a points head, and the
+# small levels that split K.
+CONV_TIMED = (
+    ("stage-2 Gaussian tower head[0]", (18, 256, 256, 256, 256)),
+    ("serve-2v256 head[2]", (1, 128, 128, 256, 256)),
+    ("batch-b8-2v256 head[2]", (8, 128, 128, 256, 256)),
+    ("stage-2 layer4_rn (split K)", (6, 768, 256, 8, 8)),
+    ("stage-2 refinenet3 unit (split K)", (6, 256, 256, 16, 16)),
+    ("stage-2 refinenet1 unit", (18, 256, 256, 64, 64)),
+)
+FP32_PEAK = 67e12  # H100 SXM f32 FFMA, FLOP/s (NVIDIA's data sheet, 700 W)
+CONV_REL_L2 = 1e-5
+
+
+def conv_flops(n, cin, cout, h, w):
+    return 2 * n * h * w * cout * 9 * cin
+
+
+def conv_case(shape, bias, dev, seed=0):
+    """A seeded (x, nn.Conv2d) pair of `shape` on dev."""
+    import torch
+
+    n, cin, cout, h, w = shape
+    gen = torch.Generator(dev).manual_seed(seed)
+    conv = torch.nn.Conv2d(cin, cout, 3, padding=1, bias=bias).to(dev)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen, device=dev) / math.sqrt(9 * cin))
+        if bias:
+            conv.bias.copy_(torch.randn(cout, generator=gen, device=dev))
+    return torch.randn(n, cin, h, w, generator=gen, device=dev), conv
+
+
+def rel_l2(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def back_to_back_ms(fn, calls, reps=5):
+    """Median over reps of the milliseconds a call of fn takes in a run of
+    `calls` calls back to back between two CUDA events: the host's time to
+    issue a call hides behind the device's work, for the kernel's wrapper
+    and the library call alike."""
+    import torch
+
+    fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / calls)
+    return statistics.median(times)
+
+
+def conv_phase(card, dev):
+    """The heads' 3x3 conv kernel (csrc/conv3x3_f32.cu) with TF32 off: at
+    every CONV_SHAPES shape, with and without bias and ReLU, against F.conv2d
+    (relative L2 at most CONV_REL_L2), one launch a call, two calls bitwise
+    equal; its gradient through the autograd Function against F.conv2d's;
+    no launch in bfloat16 or with TF32 allowed; then at CONV_TIMED the
+    kernel's device time (profiler) against its FFMA bound, and a call of
+    the route (conv3x3) against cuDNN's f32 F.conv2d (library_ms), both
+    timed back to back. The training paths' launches are checked where
+    they run (train_phase, main)."""
+    import torch
+    import torch.nn.functional as F
+
+    from styl3r_tpu_torch.ops import conv as tconv
+
+    res = {"shapes": [], "timed": []}
+    worst = 0.0
+    for i, shape in enumerate(CONV_SHAPES):
+        bias, relu = (True, False) if i % 3 == 0 else (False, True) if i % 3 == 1 else (True, True)
+        x, conv = conv_case(shape, bias, dev, seed=i)
+        with torch.no_grad():
+            before = trace.counters()["conv3x3_launches"]
+            a = tconv.conv3x3(x, conv, relu=relu)
+            b = tconv.conv3x3(x, conv, relu=relu)
+            launched = trace.counters()["conv3x3_launches"] - before
+            want = F.conv2d(x, conv.weight, conv.bias, padding=1)
+            if relu:
+                want = F.relu(want)
+        torch.cuda.synchronize()
+        gap = rel_l2(a, want)
+        worst = max(worst, gap)
+        res["shapes"].append(dict(shape=list(shape), bias=bias, relu=relu, rel_l2=gap,
+                                  plan=tconv.plan(shape[0] * shape[3] * shape[4], shape[2], shape[1],
+                                                   torch.cuda.get_device_properties(dev).multi_processor_count)))
+        if launched != 2 or not torch.equal(a, b) or not gap <= CONV_REL_L2:
+            raise AssertionError(f"conv3x3 at {shape} (bias {bias}, relu {relu}): {launched} launches for 2 calls, "
+                                 f"bitwise equal {torch.equal(a, b)}, relative L2 {gap:.3g} from F.conv2d")
+        del x, conv, a, b, want
+    log(f"conv3x3: {len(CONV_SHAPES)} shapes against F.conv2d with TF32 off: relative L2 at most {worst:.3g}, "
+        f"one launch a call, two calls bitwise equal [{card}]")
+    res["max_rel_l2"] = worst
+
+    # The gradient: convolution_backward on the saved input and weight, as
+    # F.conv2d's autograd; cuDNN deterministic, so equal bits where no ReLU
+    # mask can differ.
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for relu in (False, True):
+            x, conv = conv_case((2, 64, 96, 33, 20), True, dev, seed=5)
+            x.requires_grad_()
+            g = torch.randn(2, 96, 33, 20, generator=torch.Generator(dev).manual_seed(6), device=dev)
+            ours = torch.autograd.grad(tconv.conv3x3(x, conv, relu=relu), (x, conv.weight, conv.bias), g)
+            y = F.conv2d(x, conv.weight, conv.bias, padding=1)
+            theirs = torch.autograd.grad(F.relu(y) if relu else y, (x, conv.weight, conv.bias), g)
+            gaps = [rel_l2(a, b) for a, b in zip(ours, theirs)]
+            equal = all(torch.equal(a, b) for a, b in zip(ours, theirs))
+            log(f"conv3x3: gradient (relu {relu}) against F.conv2d's: bitwise equal {equal}, relative L2 {gaps}")
+            if (not relu and not equal) or max(gaps) > CONV_REL_L2:
+                raise AssertionError(f"conv3x3: gradient off F.conv2d's (relu {relu}): {gaps}")
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+    x, conv = conv_case((2, 32, 32, 16, 16), True, dev)
+    before = trace.counters()["conv3x3_launches"]
+    with torch.no_grad():
+        tconv.conv3x3(x.bfloat16(), conv.bfloat16())
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tconv.conv3x3(x, conv.float())
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            tconv.conv3x3(x, conv)
+    if trace.counters()["conv3x3_launches"] != before:
+        raise AssertionError("conv3x3 launched the kernel in bfloat16, under TF32 or under autocast")
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for name, shape in CONV_TIMED:
+        x, conv = conv_case(shape, True, dev)
+        n_flops = conv_flops(*shape)
+        bound_ms = n_flops / FP32_PEAK * 1e3
+        calls = max(3, min(50, int(2e11 / n_flops) + 1))
+        with torch.no_grad():
+            ms, _, launch = kernel_device_ms(lambda: tconv.conv3x3(x, conv), 10, ("conv3x3_f32_kernel",))
+            call_ms = back_to_back_ms(lambda: tconv.conv3x3(x, conv), calls)
+            library_ms = back_to_back_ms(lambda: F.conv2d(x, conv.weight, conv.bias, padding=1), calls)
+        tflops = n_flops / ms / 1e9
+        plan = tconv.plan(shape[0] * shape[3] * shape[4], shape[2], shape[1], sms)
+        res["timed"].append(dict(name=name, shape=list(shape), ms=ms, call_ms=call_ms, library_ms=library_ms,
+                                 bound_ms=bound_ms, bound_by="f32 FFMA", tflops=tflops, peak_share=tflops / 67,
+                                 plan=plan, launch=launch["conv3x3_f32_kernel"]))
+        log(f"kernel conv3x3_f32, {name} {shape}: {ms:.4f} ms on the device; back to back a call {call_ms:.4f} ms, "
+            f"cuDNN's f32 F.conv2d (TF32 off) {library_ms:.4f} ms; {tflops:.1f} TFLOP/s = {100 * tflops / 67:.1f}% of 67 TFLOP/s, bound "
+            f"{bound_ms:.4f} ms; (tile pixels, splits, chunks a split) {plan}; launched as {shape_text(launch['conv3x3_f32_kernel'])} [{card}]")
+        del x, conv
+    torch.cuda.empty_cache()
+    return res
+
+
 def sdpa_backend(kernel_names):
     """The SDPA backend a forward's attention kernels name: cudnn, flash or
     efficient; "math" where none of theirs ran."""
@@ -3344,11 +3543,13 @@ def vggt_phase(card, dev, frame_counts=(32, 2), hw=(392, 518), seed=0, widths=No
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats(dev)
             before = trace.counters()["rope_launches"]
+            conv_before = trace.counters()["conv3x3_launches"]
             with profile(activities=[ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]) as prof:
                 out = model(x)
                 if cuda:
                     torch.cuda.synchronize()
             rope_launches = trace.counters()["rope_launches"] - before
+            conv_launches = trace.counters()["conv3x3_launches"] - conv_before
             names = [e.name for e in prof.events() if cuda and e.device_type.name == "CUDA"]
             peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
             ms = cuda_ms(lambda: model(x), 3) if cuda else None
@@ -3361,6 +3562,7 @@ def vggt_phase(card, dev, frame_counts=(32, 2), hw=(392, 518), seed=0, widths=No
                    "points_rel_l2": gaps["world_points"],
                    "conf_rel_l2": max(gaps["depth_conf"], gaps["world_points_conf"])}
         res[f"{s}f"] = dict(frames=s, hw=list(hw), launches=len(names), rope_launches=rope_launches,
+                            conv3x3_launches=conv_launches,
                             sdpa_backend=backend, peak_gib=peak / 2**30, forward_ms=ms, rel_l2=gaps,
                             rope_shapes=[list(x) for x in shapes])
         log(f"vggt: {s} frames of {hw[1]}x{hw[0]}: {len(names)} kernel launches, {rope_launches} RoPE launches, "
@@ -3373,6 +3575,21 @@ def vggt_phase(card, dev, frame_counts=(32, 2), hw=(392, 518), seed=0, widths=No
             raise AssertionError(f"vggt: {s} frames: outputs off the f32 reference beyond the cell's limits: {over}, "
                                  f"limits {limits}")
         del out, want
+    # The cell's setting (vggt.json's cudnn_tf32): cuDNN may use TF32, so
+    # the heads' refinenet convs take F.conv2d and the conv kernel no launch.
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        before = trace.counters()["conv3x3_launches"]
+        with torch.inference_mode():
+            model(x)
+        res["tf32_conv3x3_launches"] = trace.counters()["conv3x3_launches"] - before
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    log(f"vggt: a request with cuDNN's TF32 allowed launched the conv kernel {res['tf32_conv3x3_launches']} times "
+        f"(with TF32 off: {conv_launches})")
+    if res["tf32_conv3x3_launches"]:
+        raise AssertionError("vggt: the conv kernel was launched with TF32 allowed")
     del model, ref
     gc.collect()
     if cuda:
@@ -3474,7 +3691,13 @@ def main():
     launches = {"serve": launch_record()}
     if launches["serve"]["composite_fwd"] == 0:
         raise AssertionError("kernel composite_fwd was not launched on the serving path")
+    # Serving's bf16 trunks bypass the conv kernel; the points heads' f32
+    # head["2"] takes it: 2 launches a forward.
+    if launches["serve"]["conv3x3"] != 2 * 3:
+        raise AssertionError(f"kernel conv3x3_f32: {launches['serve']['conv3x3']} launches over 3 serving forwards, "
+                             f"want 6")
     rope_res = rope_phase(model, batch, hw, render_kwargs, card)
+    conv_res = conv_phase(card, dev)
 
     with torch.inference_mode():
         # batch[2:6]: the target cameras (extrinsics, intrinsics, near, far).
@@ -3524,9 +3747,10 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
-    # -- training: full width, f32 master weights, bf16 compute ---------------
+    # -- training: full width, f32 master weights, a bf16 backbone, f32 heads
+    # (the Trainer's and the stage-2 cells' model) ----------------------------
     train_kwargs = TRAIN_RENDER
-    model = full_width_training_model(dev)
+    model = full_width_training_model(dev, f32_heads=True)
     if {p.dtype for p in model.parameters()} != {torch.float32}:
         raise AssertionError("a training model must hold f32 parameters")
     train_batch = example_batch(4, dev, b=2, targets=True)
@@ -3555,13 +3779,15 @@ def main():
     # on the host, out of the stages' peak device memory.
     scratch_state = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
     stage1 = train_phase(model, train_batch, hw, train_kwargs, card, stage=1)
-    launches["train_stage1"] = {"composite_fwd": stage1["fwd"], "composite_bwd": stage1["bwd"]}
+    launches["train_stage1"] = {"composite_fwd": stage1["fwd"], "composite_bwd": stage1["bwd"],
+                              "conv3x3": stage1["conv3x3"]}
     model.load_state_dict(scratch_state)
     del scratch_state
     gc.collect()  # stage 1's optimizer state
     torch.cuda.empty_cache()
     stage2 = train_phase(model, train_batch, hw, train_kwargs, card, stage=2)
-    launches["train_stage2"] = {"composite_fwd": stage2["fwd"], "composite_bwd": stage2["bwd"]}
+    launches["train_stage2"] = {"composite_fwd": stage2["fwd"], "composite_bwd": stage2["bwd"],
+                              "conv3x3": stage2["conv3x3"]}
     for kernel in ("composite_fwd", "composite_bwd"):
         if not any(v[kernel] for k, v in launches.items() if k.startswith("train")):
             raise AssertionError(f"kernel {kernel} was not launched on the training path")
@@ -3647,6 +3873,15 @@ def main():
 
     # -- VGGT-1B: 32 and 2 frames at 518x392 -----------------------------------
     vggt = vggt_phase(card, dev)
+
+    # Every path with float32 heads and TF32 off takes the heads' conv kernel.
+    conv_launches = {path: v["conv3x3"] for path, v in launches.items() if "conv3x3" in v}
+    for path in ("train_stage1", "train_stage2", "fit", "distill_stage0", "bench_train"):
+        if not conv_launches[path]:
+            raise AssertionError(f"kernel conv3x3_f32 was not launched by {path}")
+    conv_per_unit = {"serve_forward": launches["serve"]["conv3x3"] // 3,
+                     "train_stage1_step": stage1["conv3x3_per_step"], "train_stage2_step": stage2["conv3x3_per_step"],
+                     "vggt_request_tf32": vggt["tf32_conv3x3_launches"]}
 
     # Every path that runs a model on the card rotates q and k in the kernel.
     rope_launches = {path: v["rope2d"] for path, v in launches.items() if "rope2d" in v}
@@ -3748,6 +3983,18 @@ def main():
             **{k: rope_res["shapes"][0][k] for k in ("ms", "call_ms", "plain_ms", "bound_ms", "bound_by")},
             "library_ms": None,
             **rope_res,
+        },
+        {
+            "name": "conv3x3_f32",
+            "route": "cuda",
+            "source": "styl3r_tpu_torch/csrc/conv3x3_f32.cu",
+            "replaces": None,  # the JAX package leaves the heads' convs to XLA (styl3r_tpu/models/dpt.py)
+            "launches": sum(conv_launches.values()),
+            "launches_by_path": conv_launches,
+            "launches_per_unit": conv_per_unit,
+            **{k: conv_res["timed"][0][k] for k in ("ms", "call_ms", "bound_ms", "bound_by", "library_ms")},
+            "plain_ms": conv_res["timed"][0]["library_ms"],  # the plain version is F.conv2d
+            **conv_res,
         },
     ]
     training = {f"stage{i}": {k: st[k] for k in ("ms", "examples_per_s", "peak_gib", "live_pairs")}

@@ -3,7 +3,10 @@
 dpt_head.py, dpt_gs_head.py, dpt_gs_sh_head.py).
 
 Convs run NCHW inside; the heads take (b, l, c) token lists and NHWC images
-and return NHWC maps, as the JAX heads do. The JAX package rewrites the
+and return NHWC maps, as the JAX heads do. The 3x3 stride-1 convs go
+through ops/conv.py::conv3x3, which takes csrc/conv3x3_f32.cu for float32
+CUDA tensors with TF32 off (ReLUs that follow a conv fused into it) and the
+module's own forward otherwise. The JAX package rewrites the
 align-corners bilinear resize as two matmuls and the k=s transposed convs as
 a linear + pixel shuffle for the TPU; here they are `F.interpolate` and
 `nn.ConvTranspose2d`, as in the reference.
@@ -31,6 +34,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch import Tensor
 
+from ..ops.conv import conv3x3
 from .precision import compute_in
 
 GS_DROPOUT = 0.1  # gs_params tower dropout (reference dpt_block.py)
@@ -72,7 +76,7 @@ class ResidualConvUnit(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         r = F.relu(x)
-        return self.conv2(F.relu(self.conv1(r))) + (r if self.relu_skip else x)
+        return conv3x3(conv3x3(r, self.conv1, relu=True), self.conv2) + (r if self.relu_skip else x)
 
 
 class FeatureFusionBlock(nn.Module):
@@ -156,7 +160,7 @@ class DPTTrunk(nn.Module):
             b, _, c = t.shape
             layers.append(self.act_postprocess[i](t.transpose(1, 2).reshape(b, c, nh, nw)))
         s = self.scratch
-        rn = [getattr(s, f"layer{i + 1}_rn")(l) for i, l in enumerate(layers)]
+        rn = [conv3x3(l, getattr(s, f"layer{i + 1}_rn")) for i, l in enumerate(layers)]
         path4 = s.refinenet4(rn[3])[:, :, : rn[2].shape[2], : rn[2].shape[3]]
         path3 = s.refinenet3(path4, rn[2])
         path2 = s.refinenet2(path3, rn[1])
@@ -218,9 +222,9 @@ class DPTPts3dHead(nn.Module):
     def forward(self, tokens: List[Tensor], image_size: Tuple[int, int]):
         head = self.dpt.head
         with self.dpt.precision(tokens[0].device.type):
-            x = head["0"](self.dpt(tokens, image_size))
+            x = conv3x3(self.dpt(tokens, image_size), head["0"])
         x = upsample2x(x).to(head["2"].weight.dtype)
-        x = _nhwc(head["4"](F.relu(head["2"](x))))
+        x = _nhwc(head["4"](conv3x3(x, head["2"], relu=True)))
         pts = reg_dense_pts3d(x[..., :3], bound=self.pts3d_bound)
         if self.with_conf:
             return pts, conf_from_raw(x[..., 3])
@@ -326,7 +330,7 @@ class GSParamsHead(nn.Module):
             x = upsample2x(dpt(tokens, image_size))
             if images is not None:
                 x = x + dpt.input_merger(images.permute(0, 3, 1, 2).to(dpt.dtype))
-            x = F.relu(head["0"](x.to(dpt.dtype)))
+            x = conv3x3(x.to(dpt.dtype), head["0"], relu=True)
         x = dropout(x, GS_DROPOUT, self.training, generator, self.dropout_shard)
         return _nhwc(head["4"](x.to(head["4"].weight.dtype)))
 

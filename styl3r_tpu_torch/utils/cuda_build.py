@@ -43,6 +43,8 @@ KERNEL_FLAGS = {
     # Rounds every product and sum with __fmul_rn / __fadd_rn (never
     # contracted), as PyTorch's separate elementwise ops round them.
     "rope2d": (),
+    # Contracts every multiply-add (FFMA), in a fixed order.
+    "conv3x3_f32": (),
 }
 
 # Every kernel source under csrc/, by name.

@@ -60,6 +60,7 @@ COUNTERS = (
     "composite_fwd_launches",  # launches of csrc/composite_fwd.cu's kernel
     "composite_bwd_launches",  # launches of csrc/composite_bwd.cu's kernels (two a call)
     "rope_launches",  # launches of csrc/rope2d.cu's kernel (forward and backward, one each a call)
+    "conv3x3_launches",  # launches of csrc/conv3x3_f32.cu's kernel (one a routed forward call)
 )
 
 _depth = 0  # open enabled() scopes

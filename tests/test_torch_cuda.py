@@ -917,3 +917,107 @@ def test_rope_wrapper_rejects_what_the_kernel_does_not_take(cuda, bad):
     with pytest.raises(ValueError):
         rope.rope2d_qk(q, qpos, k, kpos)
     assert rope_launches() == before
+
+
+# -- the DPT heads' 3x3 conv: csrc/conv3x3_f32.cu against F.conv2d ----------
+
+# (images, cin, cout, h, w): every routed head shape of stage 2 (b = 6 over
+# 3 views: 6, 12 and 18 images) and of serving's head["2"], and ragged ones.
+CONV_SHAPES = [
+    (6, 96, 256, 64, 64), (12, 192, 256, 32, 32), (18, 384, 256, 16, 16), (6, 768, 256, 8, 8),
+    (1, 768, 256, 8, 8), (18, 256, 256, 8, 8), (6, 256, 256, 16, 16), (12, 256, 256, 32, 32),
+    (18, 256, 256, 64, 64), (6, 256, 128, 128, 128), (12, 128, 128, 256, 256), (1, 128, 128, 256, 256),
+    (18, 256, 256, 256, 256),
+    (3, 32, 96, 17, 23), (1, 256, 96, 17, 23), (2, 5, 7, 9, 11), (2, 16, 24, 1, 3), (1, 130, 130, 13, 130),
+]
+
+
+@pytest.fixture
+def no_tf32():
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _conv_case(shape, bias, device, seed=0):
+    n, cin, cout, h, w = shape
+    gen = torch.Generator(device).manual_seed(seed)
+    conv = torch.nn.Conv2d(cin, cout, 3, padding=1, bias=bias).to(device)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen, device=device) / (9 * cin) ** 0.5)
+        if bias:
+            conv.bias.copy_(torch.randn(cout, generator=gen, device=device))
+    return torch.randn(n, cin, h, w, generator=gen, device=device), conv
+
+
+def _rel_l2(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+@pytest.mark.parametrize("relu", [False, True], ids=["conv", "conv_relu"])
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no_bias"])
+@pytest.mark.parametrize("shape", CONV_SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_conv3x3_kernel_matches_f32_conv(cuda, no_tf32, shape, bias, relu):
+    """Relative L2 at most 1e-5 from cuDNN's f32 conv: both sum 9 * cin
+    products in f32, in other orders. One launch a call; two calls equal
+    bit for bit (a fixed summation order, split K included)."""
+    from styl3r_tpu_torch.ops import conv as tconv
+
+    x, conv = _conv_case(shape, bias, cuda)
+    before = trace.counters()["conv3x3_launches"]
+    with torch.no_grad():
+        a = tconv.conv3x3(x, conv, relu=relu)
+        b = tconv.conv3x3(x, conv, relu=relu)
+        want = torch.nn.functional.conv2d(x, conv.weight, conv.bias, padding=1)
+    if relu:
+        want = torch.relu(want)
+    torch.cuda.synchronize()
+    assert trace.counters()["conv3x3_launches"] - before == 2
+    assert a.shape == want.shape and a.dtype == torch.float32 and a.is_contiguous()
+    assert torch.equal(a, b)
+    assert _rel_l2(a, want) <= 1e-5
+
+
+@pytest.mark.parametrize("relu", [False, True], ids=["conv", "conv_relu"])
+def test_conv3x3_gradient_is_f32_convs(cuda, no_tf32, monkeypatch, relu):
+    """The Function's backward is convolution_backward on the saved input
+    and weight: with cuDNN deterministic and the same cotangent, F.conv2d's
+    gradients bit for bit (after the ReLU, where the two forwards' masks
+    can differ on values that round across 0, to 1e-5)."""
+    from styl3r_tpu_torch.ops import conv as tconv
+
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    x, conv = _conv_case((2, 64, 96, 33, 20), True, cuda, seed=3)
+    x.requires_grad_()
+    g = torch.randn(2, 96, 33, 20, generator=torch.Generator(cuda).manual_seed(4), device=cuda)
+    params = (x, conv.weight, conv.bias)
+    before = trace.counters()["conv3x3_launches"]
+    ours = torch.autograd.grad(tconv.conv3x3(x, conv, relu=relu), params, g)
+    assert trace.counters()["conv3x3_launches"] - before == 1
+    y = torch.nn.functional.conv2d(x, conv.weight, conv.bias, padding=1)
+    theirs = torch.autograd.grad(torch.relu(y) if relu else y, params, g)
+    for a, b in zip(ours, theirs):
+        assert torch.equal(a, b) if not relu else _rel_l2(a, b) <= 1e-5
+
+
+@pytest.mark.parametrize("case", ["bf16", "tf32", "autocast", "stride2", "1x1"])
+def test_conv3x3_launches_nothing_off_the_route(cuda, no_tf32, monkeypatch, case):
+    """bfloat16, TF32 allowed, autocast and convs that are not 3x3 stride-1
+    pad-1 take the module's own forward, bit for bit, and no launch."""
+    from styl3r_tpu_torch.ops import conv as tconv
+
+    x, conv = _conv_case((2, 16, 24, 12, 10), True, cuda)
+    if case == "bf16":
+        x, conv = x.bfloat16(), conv.bfloat16()
+    elif case == "tf32":
+        monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    elif case in ("stride2", "1x1"):
+        conv = torch.nn.Conv2d(16, 24, 3 if case == "stride2" else 1, stride=2 if case == "stride2" else 1,
+                               padding=1 if case == "stride2" else 0).to(cuda)
+    before = trace.counters()["conv3x3_launches"]
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16, enabled=case == "autocast"):
+        got = tconv.conv3x3(x, conv, relu=True)
+        want = torch.relu(conv(x))
+    assert trace.counters()["conv3x3_launches"] == before
+    assert got.dtype == want.dtype and torch.equal(got, want)

@@ -124,3 +124,111 @@ def test_bf16_trunk_keeps_f32_outputs():
     assert out.dtype == torch.float32
     # bf16 keeps 8 mantissa bits: agreement to a few percent of the scale.
     np.testing.assert_allclose(out.numpy(), ref.numpy(), atol=0.05 * float(ref.abs().max()))
+
+
+# -- ops/conv.py::conv3x3, the route of the heads' 3x3 stride-1 convs -------
+
+from styl3r_tpu_torch.ops import conv as tconv  # noqa: E402
+from styl3r_tpu_torch.utils import trace  # noqa: E402
+
+
+def _conv(cin, cout, bias, dtype, seed=0):
+    torch.manual_seed(seed)
+    return torch.nn.Conv2d(cin, cout, 3, padding=1, bias=bias).to(dtype)
+
+
+@pytest.mark.parametrize("relu", [False, True], ids=["conv", "conv_relu"])
+@pytest.mark.parametrize("bias", [True, False], ids=["bias", "no_bias"])
+@pytest.mark.parametrize("case", ["cpu_f32", "cpu_bf16", "cpu_tf32_allowed"])
+def test_conv3x3_off_the_kernel_is_exactly_the_module(case, bias, relu, monkeypatch):
+    """On CPU tensors, in bfloat16 and with cuDNN's TF32 allowed, conv3x3
+    is F.conv2d (then F.relu) bit for bit, and launches nothing."""
+    dtype = torch.bfloat16 if case == "cpu_bf16" else torch.float32
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", case == "cpu_tf32_allowed")
+    conv = _conv(6, 5, bias, dtype)
+    x = torch.randn(2, 6, 7, 9, generator=torch.Generator().manual_seed(1)).to(dtype)
+    before = trace.counters()["conv3x3_launches"]
+    assert not tconv.routed(x, conv)
+    with torch.no_grad():
+        got = tconv.conv3x3(x, conv, relu=relu)
+        want = torch.nn.functional.conv2d(x, conv.weight, conv.bias, padding=1)
+    if relu:
+        want = torch.relu(want)
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert trace.counters()["conv3x3_launches"] == before
+
+
+def test_conv3x3_off_the_kernel_keeps_the_modules_gradient():
+    conv = _conv(4, 3, True, torch.float32)
+    x = torch.randn(1, 4, 5, 6, generator=torch.Generator().manual_seed(2), requires_grad=True)
+    g = torch.randn(1, 3, 5, 6, generator=torch.Generator().manual_seed(3))
+    got = torch.autograd.grad(tconv.conv3x3(x, conv, relu=True), (x, conv.weight, conv.bias), g)
+    want = torch.autograd.grad(torch.relu(conv(x)), (x, conv.weight, conv.bias), g)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("shape", [
+    (6, 768, 256, 8, 8), (18, 256, 256, 8, 8), (6, 384, 256, 16, 16), (12, 256, 256, 32, 32),
+    (6, 256, 256, 64, 64), (18, 256, 256, 256, 256), (1, 128, 128, 256, 256), (8, 128, 128, 256, 256),
+    (3, 5, 96, 17, 23),
+])
+def test_plan_covers_every_chunk_once(shape):
+    """A launch's plan on a 132-SM card: the wide tile where its tiles fill
+    the SMs one and a half times, else the narrow one; K split only where
+    its tiles leave SMs idle, every split non-empty, the splits' chunks
+    exactly K's."""
+    n, cin, cout, h, w = shape
+    tile, splits, per = tconv.plan(n * h * w, cout, cin, 132)
+    chunks = -(-cin // tconv.CHUNK_CHANNELS)
+    assert (splits - 1) * per < chunks <= splits * per and 1 <= splits <= tconv.MAX_SPLITS
+    if 2 * tconv.tiles(n * h * w, cout, tconv.WIDE[0]) >= 3 * 132 * tconv.WIDE[1]:
+        assert (tile, splits) == (tconv.WIDE[0], 1)
+    else:
+        assert tile == tconv.NARROW[0]
+    if splits > 1:
+        assert per >= tconv.MIN_CHUNKS_PER_SPLIT
+        assert tconv.tiles(n * h * w, cout, tile) * splits <= 132 * tconv.NARROW[1]
+    if shape == (6, 768, 256, 8, 8):
+        assert splits > 1  # layer4_rn at b = 6: 6 tiles alone would leave 126 SMs idle
+    if shape in ((1, 128, 128, 256, 256), (18, 256, 256, 256, 256)):
+        assert (tile, splits) == (256, 1)
+
+
+@pytest.mark.parametrize("head", ["pts3d", "gs", "gs_merger"])
+def test_heads_route_every_3x3_conv_and_keep_their_keys(head, monkeypatch):
+    """Every stride-1 3x3 conv of a head goes through conv3x3 (20 a pts3d
+    head, 19 a gs head), and the heads' state-dict keys are the converter's
+    (the flax loader is untouched)."""
+    rng = np.random.default_rng(7)
+    tokens = [torch.from_numpy(t) for t in _tokens(rng)]
+    jt = [jnp.asarray(t.numpy()) for t in tokens]
+    if head == "pts3d":
+        jm, tm, fill = jd.DPTPts3dHead(last_dim=16, **HEAD), td.DPTPts3dHead(HOOK_DIMS, last_dim=16, **HEAD), \
+            convert._pts3d_head
+        args, jargs, want = (tokens, (H, W)), (jt, (H, W)), 20
+    else:
+        merger = head == "gs_merger"
+        cls = td.DPTGSHead if merger else td.DPTGSSHHead
+        jm = (jd.DPTGSHead if merger else jd.DPTGSSHHead)(out_channels=7, **HEAD)
+        tm, fill = cls(HOOK_DIMS, 7, **HEAD), convert._gs_head
+        imgs = torch.from_numpy(rng.normal(size=(2, H, W, 3)).astype(np.float32))
+        args = (tokens, imgs, (H, W)) if merger else (tokens, (H, W))
+        jargs = (jt, jnp.asarray(imgs.numpy()), (H, W)) if merger else (jt, (H, W))
+        want = 19
+    sd = {}
+    fill(jm.init(jax.random.key(0), *jargs)["params"], sd, "m")
+    assert sorted(k[2:] for k in sd) == sorted(tm.state_dict())
+    calls = []
+    route = tconv.conv3x3
+
+    def counted(x, conv, relu=False):
+        calls.append((conv.kernel_size, conv.stride, relu))
+        return route(x, conv, relu)
+
+    monkeypatch.setattr(td, "conv3x3", counted)
+    with torch.no_grad():
+        tm.eval()(*args)
+    assert len(calls) == want and {c[:2] for c in calls} == {((3, 3), (1, 1))}
+    # The ReLUs that follow a conv are fused into it: the 7 units' conv1 and
+    # the tower's last 3x3.
+    assert sum(c[2] for c in calls) == 8

@@ -89,7 +89,8 @@ def test_off_records_nothing_and_the_counters_count(model):
     assert trace.totals() == {} and trace.drain() == {}
     trace.count("composite_fwd_launches")
     trace.count("composite_bwd_launches", 2)
-    assert trace.counters() == {"composite_fwd_launches": 1, "composite_bwd_launches": 2, "rope_launches": 0}
+    assert trace.counters() == {"composite_fwd_launches": 1, "composite_bwd_launches": 2, "rope_launches": 0,
+                                "conv3x3_launches": 0}
     with trace.span("not_a_span"):  # off: the name is not looked at
         pass
     with pytest.raises(ValueError):
