@@ -238,13 +238,12 @@ def kernel_launches():
     utils/trace.py's counters, in which a backward call launches its two
     phases."""
     c = trace.counters()
-    return c["composite_fwd_launches"], c["composite_bwd_launches"]
+    return c["composite_fwd"], c["composite_bwd"]
 
 
 def launch_record():
-    fwd, bwd = kernel_launches()
-    c = trace.counters()
-    return {"composite_fwd": fwd, "composite_bwd": bwd, "rope2d": c["rope_launches"], "conv3x3": c["conv3x3_launches"]}
+    """Every kernel's launches since trace.reset(), by its name."""
+    return trace.counters()
 
 
 def compositor_launches(record):
@@ -1217,7 +1216,7 @@ def train_phase(model, batch, hw, render_kwargs, card, stage, reps=5, warm=2):
     times, losses, lives = [], [], []
     for i in range(warm + reps):
         fwd0, bwd0 = kernel_launches()
-        conv0 = trace.counters()["conv3x3_launches"]
+        conv0 = trace.counters()["conv3x3_f32"]
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
         metrics = step(state, batch, generator)
@@ -1237,7 +1236,7 @@ def train_phase(model, batch, hw, render_kwargs, card, stage, reps=5, warm=2):
         launched = (kernel_launches()[0] - fwd0, kernel_launches()[1] - bwd0)
         if launched != (per_step, 2 * per_step):
             raise AssertionError(f"{where}: compositor launches (fwd, bwd) {launched}, expected {per_step} calls of each")
-        convs = trace.counters()["conv3x3_launches"] - conv0
+        convs = trace.counters()["conv3x3_f32"] - conv0
         if convs != CONV3X3_PER_FORWARD * per_step:
             raise AssertionError(f"{where}: {convs} launches of the heads' conv kernel, expected "
                                  f"{CONV3X3_PER_FORWARD * per_step} ({per_step} forwards)")
@@ -1268,7 +1267,7 @@ def train_phase(model, batch, hw, render_kwargs, card, stage, reps=5, warm=2):
         f"of {slots} slots; launches fwd {kernel_launches()[0]} bwd {kernel_launches()[1]}, conv3x3 {convs} a step "
         f"[{card}]")
     return dict(ms=ms, examples_per_s=1e3 * b / ms, peak_gib=peak_gb, fwd=kernel_launches()[0],
-                bwd=kernel_launches()[1], conv3x3=trace.counters()["conv3x3_launches"], conv3x3_per_step=convs,
+                bwd=kernel_launches()[1], conv3x3=trace.counters()["conv3x3_f32"], conv3x3_per_step=convs,
                 losses=losses, live_pairs=lives)
 
 
@@ -3226,11 +3225,11 @@ def rope_phase(model, batch, hw, render_kwargs, card, calls=2000):
 
     vit.rope2d_qk = record
     try:
-        before = trace.counters()["rope_launches"]
+        before = trace.counters()["rope2d"]
         with torch.inference_mode():
             model(batch, hw, **render_kwargs)
         torch.cuda.synchronize()
-        launched = trace.counters()["rope_launches"] - before
+        launched = trace.counters()["rope2d"] - before
     finally:
         vit.rope2d_qk = kernel_qk
         for h in hooks:
@@ -3279,9 +3278,9 @@ def rope_phase(model, batch, hw, render_kwargs, card, calls=2000):
         host["kernel_with_grad"] = host_us(lambda: rope.rope2d_qk(qg, qpos, kg, kpos), calls // 4)
         gen = torch.Generator(q.device).manual_seed(1)
         cot = [torch.randn(x.shape, generator=gen, device=q.device).to(x.dtype) for x in (q, k)]
-        before = trace.counters()["rope_launches"]
+        before = trace.counters()["rope2d"]
         ours = torch.autograd.grad(rope.rope2d_qk(qg, qpos, kg, kpos), (qg, kg), cot)
-        if trace.counters()["rope_launches"] - before != 2:
+        if trace.counters()["rope2d"] - before != 2:
             raise AssertionError("rope: a forward and backward with grad did not launch the kernel twice")
         plain = torch.autograd.grad((rope.apply_rope2d(qg, qpos), rope.apply_rope2d(kg, kpos)), (qg, kg), cot)
         grad_ulp = max(int(ulp_gap(a, b).max()) for a, b in zip(ours, plain))
@@ -3387,10 +3386,10 @@ def conv_phase(card, dev):
         bias, relu = (True, False) if i % 3 == 0 else (False, True) if i % 3 == 1 else (True, True)
         x, conv = conv_case(shape, bias, dev, seed=i)
         with torch.no_grad():
-            before = trace.counters()["conv3x3_launches"]
+            before = trace.counters()["conv3x3_f32"]
             a = tconv.conv3x3(x, conv, relu=relu)
             b = tconv.conv3x3(x, conv, relu=relu)
-            launched = trace.counters()["conv3x3_launches"] - before
+            launched = trace.counters()["conv3x3_f32"] - before
             want = F.conv2d(x, conv.weight, conv.bias, padding=1)
             if relu:
                 want = F.relu(want)
@@ -3430,7 +3429,7 @@ def conv_phase(card, dev):
         torch.backends.cudnn.deterministic = deterministic
 
     x, conv = conv_case((2, 32, 32, 16, 16), True, dev)
-    before = trace.counters()["conv3x3_launches"]
+    before = trace.counters()["conv3x3_f32"]
     with torch.no_grad():
         tconv.conv3x3(x.bfloat16(), conv.bfloat16())
         torch.backends.cudnn.allow_tf32 = True
@@ -3440,7 +3439,7 @@ def conv_phase(card, dev):
             torch.backends.cudnn.allow_tf32 = False
         with torch.autocast("cuda", dtype=torch.bfloat16):
             tconv.conv3x3(x, conv)
-    if trace.counters()["conv3x3_launches"] != before:
+    if trace.counters()["conv3x3_f32"] != before:
         raise AssertionError("conv3x3 launched the kernel in bfloat16, under TF32 or under autocast")
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -3542,14 +3541,14 @@ def vggt_phase(card, dev, frame_counts=(32, 2), hw=(392, 518), seed=0, widths=No
             if cuda:
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats(dev)
-            before = trace.counters()["rope_launches"]
-            conv_before = trace.counters()["conv3x3_launches"]
+            before = trace.counters()["rope2d"]
+            conv_before = trace.counters()["conv3x3_f32"]
             with profile(activities=[ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]) as prof:
                 out = model(x)
                 if cuda:
                     torch.cuda.synchronize()
-            rope_launches = trace.counters()["rope_launches"] - before
-            conv_launches = trace.counters()["conv3x3_launches"] - conv_before
+            rope_launches = trace.counters()["rope2d"] - before
+            conv_launches = trace.counters()["conv3x3_f32"] - conv_before
             names = [e.name for e in prof.events() if cuda and e.device_type.name == "CUDA"]
             peak = torch.cuda.max_memory_allocated(dev) if cuda else 0
             ms = cuda_ms(lambda: model(x), 3) if cuda else None
@@ -3580,10 +3579,10 @@ def vggt_phase(card, dev, frame_counts=(32, 2), hw=(392, 518), seed=0, widths=No
     tf32 = torch.backends.cudnn.allow_tf32
     torch.backends.cudnn.allow_tf32 = True
     try:
-        before = trace.counters()["conv3x3_launches"]
+        before = trace.counters()["conv3x3_f32"]
         with torch.inference_mode():
             model(x)
-        res["tf32_conv3x3_launches"] = trace.counters()["conv3x3_launches"] - before
+        res["tf32_conv3x3_launches"] = trace.counters()["conv3x3_f32"] - before
     finally:
         torch.backends.cudnn.allow_tf32 = tf32
     log(f"vggt: a request with cuDNN's TF32 allowed launched the conv kernel {res['tf32_conv3x3_launches']} times "
@@ -3693,8 +3692,8 @@ def main():
         raise AssertionError("kernel composite_fwd was not launched on the serving path")
     # Serving's bf16 trunks bypass the conv kernel; the points heads' f32
     # head["2"] takes it: 2 launches a forward.
-    if launches["serve"]["conv3x3"] != 2 * 3:
-        raise AssertionError(f"kernel conv3x3_f32: {launches['serve']['conv3x3']} launches over 3 serving forwards, "
+    if launches["serve"]["conv3x3_f32"] != 2 * 3:
+        raise AssertionError(f"kernel conv3x3_f32: {launches['serve']['conv3x3_f32']} launches over 3 serving forwards, "
                              f"want 6")
     rope_res = rope_phase(model, batch, hw, render_kwargs, card)
     conv_res = conv_phase(card, dev)
@@ -3780,14 +3779,14 @@ def main():
     scratch_state = {k: v.detach().to("cpu", copy=True) for k, v in model.state_dict().items()}
     stage1 = train_phase(model, train_batch, hw, train_kwargs, card, stage=1)
     launches["train_stage1"] = {"composite_fwd": stage1["fwd"], "composite_bwd": stage1["bwd"],
-                              "conv3x3": stage1["conv3x3"]}
+                              "conv3x3_f32": stage1["conv3x3"]}
     model.load_state_dict(scratch_state)
     del scratch_state
     gc.collect()  # stage 1's optimizer state
     torch.cuda.empty_cache()
     stage2 = train_phase(model, train_batch, hw, train_kwargs, card, stage=2)
     launches["train_stage2"] = {"composite_fwd": stage2["fwd"], "composite_bwd": stage2["bwd"],
-                              "conv3x3": stage2["conv3x3"]}
+                              "conv3x3_f32": stage2["conv3x3"]}
     for kernel in ("composite_fwd", "composite_bwd"):
         if not any(v[kernel] for k, v in launches.items() if k.startswith("train")):
             raise AssertionError(f"kernel {kernel} was not launched on the training path")
@@ -3875,11 +3874,11 @@ def main():
     vggt = vggt_phase(card, dev)
 
     # Every path with float32 heads and TF32 off takes the heads' conv kernel.
-    conv_launches = {path: v["conv3x3"] for path, v in launches.items() if "conv3x3" in v}
+    conv_launches = {path: v["conv3x3_f32"] for path, v in launches.items() if "conv3x3_f32" in v}
     for path in ("train_stage1", "train_stage2", "fit", "distill_stage0", "bench_train"):
         if not conv_launches[path]:
             raise AssertionError(f"kernel conv3x3_f32 was not launched by {path}")
-    conv_per_unit = {"serve_forward": launches["serve"]["conv3x3"] // 3,
+    conv_per_unit = {"serve_forward": launches["serve"]["conv3x3_f32"] // 3,
                      "train_stage1_step": stage1["conv3x3_per_step"], "train_stage2_step": stage2["conv3x3_per_step"],
                      "vggt_request_tf32": vggt["tf32_conv3x3_launches"]}
 

@@ -6,11 +6,11 @@
 Builds styl3r_tpu_torch/csrc/composite_fwd.cu as the repo builds it and
 with other values of its build-time constants (-D COMPOSITE_FWD_CHUNKS,
 threads a pixel, and COMPOSITE_FWD_SPLIT, blocks a tile) and of its
-register cap (-maxrregcount in cuda_build.KERNEL_FLAGS). With
+register cap (-maxrregcount in cuda_build.KERNELS). With
 --baseline, also the composite_fwd.cu of another checkout of the repo (an
 earlier commit, say), built with that checkout's own nvcc flags. Every
 build runs through composite.composite_tiles, the wrapper the port calls,
-with its library bound in place of the repo's.
+with its library bound in place of the repo's (cuda_build.bind).
 
 Each build is held against composite_tiles_plain (n_done equal, values
 within chip_smoke.TOL, two calls bitwise equal) and timed on chip_smoke.py's
@@ -25,7 +25,6 @@ last line is a JSON object with every number.
 """
 
 import argparse
-import ctypes
 import importlib.util
 import json
 import os
@@ -84,22 +83,11 @@ def build(builds, out_dir):
     return built
 
 
-def bind(so):
-    """The library's composite_fwd entry, typed as composite._kernel_fn types it."""
-    from styl3r_tpu_torch.ops.rasterizer import composite
+def use(so):
+    """Makes composite.composite_tiles launch the library `so`'s kernel."""
+    from styl3r_tpu_torch.utils import cuda_build
 
-    fn = ctypes.CDLL(so).composite_fwd
-    n_ptr, n_int = composite._SIGNATURES["composite_fwd"]
-    fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def use(fn):
-    """Makes composite.composite_tiles launch `fn`."""
-    from styl3r_tpu_torch.ops.rasterizer import composite
-
-    composite._kernels["composite_fwd"] = fn
+    cuda_build.bind("composite_fwd", so)
 
 
 def check(args):
@@ -180,7 +168,7 @@ def main():
     log(card)
 
     builds = sources(opts.baseline)
-    kernels = {name: bind(so) for name, so in build(builds, os.path.join(cuda_build.BUILD_DIR, "variants")).items()}
+    kernels = build(builds, os.path.join(cuda_build.BUILD_DIR, "variants"))
     inputs = forward_inputs(dev)
     args = {what: (x.attrs, x.starts, x.counts, x.backgrounds, x.grid, 2048, x.n_views) for what, x in inputs.items()}
     use(kernels["kept"])
@@ -198,8 +186,8 @@ def main():
     result = {"card": card, "variants": {name: {"flags": list(builds[name][1]), "max_err": {}, "call_ms": {},
                                                 "ms": {}, "launch": {}} for name in kernels}}
     with torch.no_grad():
-        for name, fn in kernels.items():
-            use(fn)
+        for name, so in kernels.items():
+            use(so)
             for what, a in args.items():
                 result["variants"][name]["max_err"][what] = check(a)
         for what, a in args.items():

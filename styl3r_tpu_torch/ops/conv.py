@@ -18,7 +18,6 @@ autograd makes. The plain version of the kernel is F.conv2d with TF32 off.
 
 from __future__ import annotations
 
-import ctypes
 from functools import lru_cache
 from typing import Optional, Tuple
 
@@ -27,7 +26,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch import Tensor
 
-from ..utils import cuda_build, trace
+from ..utils import cuda_build
 
 TILE_CHANNELS = 128  # the kernel's block tile: output channels
 # Its output pixels, each with the blocks an SM holds at once: the wide
@@ -37,21 +36,6 @@ WIDE, NARROW = (256, 1), (128, 2)
 CHUNK_CHANNELS = 4  # input channels a K step of the kernel takes
 MIN_CHUNKS_PER_SPLIT = 4  # the least K a block of a split tile takes (144 k values)
 MAX_SPLITS = 32
-
-_fn = None
-# The C entry point: x, w, bias, y; n, cin, h, w, cout, relu, tile_pixels,
-# splits, chunks_per_split; workspace, counters, stream.
-_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9 + [ctypes.c_void_p] * 3
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = cuda_build.load("conv3x3_f32").conv3x3_f32
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
 
 
 def routed(x: Tensor, conv: nn.Conv2d) -> bool:
@@ -116,17 +100,10 @@ def _launch(x: Tensor, weight: Tensor, bias: Optional[Tensor], relu: bool) -> Te
         count = tiles(n * h * w, cout, tile_pixels)
         workspace = x.new_empty(count * splits * tile_pixels * TILE_CHANNELS)
         counters = torch.zeros(count, dtype=torch.int32, device=dev)  # the blocks done, a tile
-    args = (x.data_ptr(), weight.data_ptr(), None if bias is None else bias.contiguous().data_ptr(), y.data_ptr(),
-            n, cin, h, w, cout, int(relu), tile_pixels, splits, per,
-            None if workspace is None else workspace.data_ptr(), None if counters is None else counters.data_ptr())
-    if dev.index == torch.cuda.current_device():
-        rc = _kernel()(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    else:
-        with torch.cuda.device(dev):  # the kernel launches on the tensors' device
-            rc = _kernel()(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    if rc != 0:
-        raise RuntimeError(f"conv3x3_f32 kernel launch failed with CUDA error {rc}")
-    trace.count("conv3x3_launches")
+    cuda_build.launch(
+        "conv3x3_f32", dev, x.data_ptr(), weight.data_ptr(), None if bias is None else bias.contiguous().data_ptr(),
+        y.data_ptr(), n, cin, h, w, cout, int(relu), tile_pixels, splits, per,
+        None if workspace is None else workspace.data_ptr(), None if counters is None else counters.data_ptr())
     return y
 
 

@@ -22,13 +22,12 @@ ties both together as a torch.autograd.Function.
 
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple, Tuple
 
 import torch
 from torch import Tensor
 
-from ...utils import cuda_build, trace
+from ...utils import cuda_build
 
 TILE = 16
 P = TILE * TILE  # pixels per tile
@@ -305,23 +304,6 @@ def composite_backward_plain(
     return grad
 
 
-_kernels = {}
-
-# The C entry points: (pointer arguments, int arguments), then the stream.
-_SIGNATURES = {"composite_fwd": (9, 5), "composite_bwd": (10, 5)}
-
-
-def _kernel_fn(name: str):
-    """The C entry point `name`, built and bound at first use."""
-    if name not in _kernels:
-        fn = getattr(cuda_build.load(name), name)
-        n_ptr, n_int = _SIGNATURES[name]
-        fn.argtypes = [ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _kernels[name] = fn
-    return _kernels[name]
-
-
 def _check(fn: str, name: str, x: Tensor, dtype: torch.dtype, shape: tuple, device) -> None:
     if x.device != device or x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous():
         raise ValueError(
@@ -365,16 +347,11 @@ def composite_tiles(
     alpha = torch.empty(n_tiles, P, device=dev)
     t_final = torch.empty(n_tiles, P, device=dev)
     n_done = torch.empty(n_tiles, dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):  # the kernel launches on the tensors' device
-        rc = _kernel_fn("composite_fwd")(
-            attrs.data_ptr(), starts.data_ptr(), counts.data_ptr(), background.data_ptr(),
-            color.data_ptr(), depth.data_ptr(), alpha.data_ptr(), n_done.data_ptr(),
-            t_final.data_ptr(), n_tiles, attrs.shape[0], gy * gx, gx,
-            max_windows(max_per_tile), torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"composite_fwd kernel launch failed with CUDA error {rc}")
-    trace.count("composite_fwd_launches")
+    cuda_build.launch(
+        "composite_fwd", dev, attrs.data_ptr(), starts.data_ptr(), counts.data_ptr(), background.data_ptr(),
+        color.data_ptr(), depth.data_ptr(), alpha.data_ptr(), n_done.data_ptr(), t_final.data_ptr(),
+        n_tiles, attrs.shape[0], gy * gx, gx, max_windows(max_per_tile),
+    )
     return CompositeOutput(color, depth, alpha, n_done, t_final)
 
 
@@ -424,16 +401,11 @@ def composite_backward(
     grad = torch.zeros(attrs.shape[0], N_ATTR, device=dev)
     n_windows = max_windows(max_per_tile)
     sums = torch.empty(n_tiles, n_windows, P, 2, device=dev)
-    with torch.cuda.device(dev):
-        rc = _kernel_fn("composite_bwd")(
-            attrs.data_ptr(), starts.data_ptr(), counts.data_ptr(), n_done.data_ptr(),
-            t_final.data_ptr(), dcolor.data_ptr(), ddepth.data_ptr(), dalpha.data_ptr(),
-            sums.data_ptr(), grad.data_ptr(), n_tiles, attrs.shape[0], gy * gx, gx, n_windows,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
-    if rc != 0:
-        raise RuntimeError(f"composite_bwd kernel launch failed with CUDA error {rc}")
-    trace.count("composite_bwd_launches", 2)
+    cuda_build.launch(
+        "composite_bwd", dev, attrs.data_ptr(), starts.data_ptr(), counts.data_ptr(), n_done.data_ptr(),
+        t_final.data_ptr(), dcolor.data_ptr(), ddepth.data_ptr(), dalpha.data_ptr(),
+        sums.data_ptr(), grad.data_ptr(), n_tiles, attrs.shape[0], gy * gx, gx, n_windows,
+    )
     return grad
 
 

@@ -14,13 +14,12 @@ plain version's separate ops do, so both give the same bits.
 
 from __future__ import annotations
 
-import ctypes
 from typing import Dict, Optional, Tuple
 
 import torch
 from torch import Tensor
 
-from ..utils import cuda_build, trace
+from ..utils import cuda_build
 
 
 def _inv_freq(f: int, base: float, device) -> Tensor:
@@ -54,24 +53,7 @@ def apply_rope2d(tokens: Tensor, positions: Tensor, base: float = 100.0) -> Tens
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _tables: Dict[tuple, Tensor] = {}  # (d, base, device) -> inv_freq on the device
-_fn = None
-# The C entry point: dtype, batch, heads, head_dim, inverse, the inv_freq
-# table; per side (x, its batch and token strides, positions, theirs, out,
-# n); the stream.
-_SIDE = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-         ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_int]
-_ARGTYPES = [ctypes.c_int] * 5 + [ctypes.c_void_p] + _SIDE * 2 + [ctypes.c_void_p]
-_NO_SIDE = (None, 0, 0, None, 0, 0, None, 0)
-
-
-def _kernel():
-    global _fn
-    if _fn is None:
-        fn = cuda_build.load("rope2d").rope2d
-        fn.argtypes = _ARGTYPES
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
+_NO_SIDE = (None, 0, 0, None, 0, 0, None, 0)  # the kernel's second side, when there is none
 
 
 def _heads_contiguous(shape, strides) -> bool:
@@ -117,17 +99,8 @@ def _launch(base: float, inverse: bool, x: Tensor, pos: Tensor,
         out_y = y.new_empty(y.shape)
         side_b = (y.data_ptr(), y.stride(0), y.stride(1), ypos.data_ptr(), ypos.stride(0), ypos.stride(1),
                   out_y.data_ptr(), y.shape[1])
-    args = (_DTYPES[x.dtype], b, heads, d, int(inverse), table.data_ptr(), *side_a, *side_b)
-    # The raw stream, not current_stream().cuda_stream: the same pointer
-    # without building a Stream object, which cost as much as the launch.
-    if dev.index == torch.cuda.current_device():
-        rc = _kernel()(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    else:
-        with torch.cuda.device(dev):  # the kernel launches on the tensors' device
-            rc = _kernel()(*args, torch._C._cuda_getCurrentRawStream(dev.index))
-    if rc != 0:
-        raise RuntimeError(f"rope2d kernel launch failed with CUDA error {rc}")
-    trace.count("rope_launches")
+    cuda_build.launch("rope2d", dev, _DTYPES[x.dtype], b, heads, d, int(inverse), table.data_ptr(),
+                      *side_a, *side_b)
     return out, out_y
 
 

@@ -15,7 +15,8 @@ The events are resolved when the totals are read, never inside a span, so
 a span adds no kernel and no synchronisation. While the current stream is
 being captured into a CUDA graph a span records no event.
 
-`count(name, n)` adds to an integer counter that is always on. Reads
+`count(name, n)` adds to an integer counter that is always on: the kernel
+launches, one counter a kernel of utils/cuda_build.py. Reads
 (`totals`, `counters`, `drain`) may synchronise; they are for after the
 work. Every span and counter name is declared below; recording another is
 an error.
@@ -29,6 +30,8 @@ from typing import Dict, List, Tuple
 
 import torch
 from torch.autograd import profiler as _profiler
+
+from .cuda_build import KERNELS
 
 PREFIX = "styl3r/"
 
@@ -56,12 +59,9 @@ SPANS = (
     "camera_head",  # VGGT's camera head, its refinements together
 )
 
-COUNTERS = (
-    "composite_fwd_launches",  # launches of csrc/composite_fwd.cu's kernel
-    "composite_bwd_launches",  # launches of csrc/composite_bwd.cu's kernels (two a call)
-    "rope_launches",  # launches of csrc/rope2d.cu's kernel (forward and backward, one each a call)
-    "conv3x3_launches",  # launches of csrc/conv3x3_f32.cu's kernel (one a routed forward call)
-)
+# Launches of each csrc/<name>.cu's kernels, by name, as cuda_build.launch
+# counts them.
+COUNTERS = tuple(KERNELS)
 
 _depth = 0  # open enabled() scopes
 _pending: Dict[str, List[tuple]] = {}  # closed spans whose stamps are not yet read

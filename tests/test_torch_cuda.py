@@ -33,7 +33,7 @@ def launches():
     """(forward, backward) compositor kernel launches so far: utils/trace.py's
     counters, in which each backward call launches its two phases."""
     c = trace.counters()
-    return c["composite_fwd_launches"], c["composite_bwd_launches"]
+    return c["composite_fwd"], c["composite_bwd"]
 
 
 @pytest.fixture
@@ -810,7 +810,7 @@ def _rope_qk(device, case, dtype, heads, seed=0):
 
 
 def rope_launches():
-    return trace.counters()["rope_launches"]
+    return trace.counters()["rope2d"]
 
 
 @pytest.mark.parametrize("case", ["self", "cross"])
@@ -965,7 +965,7 @@ def test_conv3x3_kernel_matches_f32_conv(cuda, no_tf32, shape, bias, relu):
     from styl3r_tpu_torch.ops import conv as tconv
 
     x, conv = _conv_case(shape, bias, cuda)
-    before = trace.counters()["conv3x3_launches"]
+    before = trace.counters()["conv3x3_f32"]
     with torch.no_grad():
         a = tconv.conv3x3(x, conv, relu=relu)
         b = tconv.conv3x3(x, conv, relu=relu)
@@ -973,7 +973,7 @@ def test_conv3x3_kernel_matches_f32_conv(cuda, no_tf32, shape, bias, relu):
     if relu:
         want = torch.relu(want)
     torch.cuda.synchronize()
-    assert trace.counters()["conv3x3_launches"] - before == 2
+    assert trace.counters()["conv3x3_f32"] - before == 2
     assert a.shape == want.shape and a.dtype == torch.float32 and a.is_contiguous()
     assert torch.equal(a, b)
     assert _rel_l2(a, want) <= 1e-5
@@ -992,9 +992,9 @@ def test_conv3x3_gradient_is_f32_convs(cuda, no_tf32, monkeypatch, relu):
     x.requires_grad_()
     g = torch.randn(2, 96, 33, 20, generator=torch.Generator(cuda).manual_seed(4), device=cuda)
     params = (x, conv.weight, conv.bias)
-    before = trace.counters()["conv3x3_launches"]
+    before = trace.counters()["conv3x3_f32"]
     ours = torch.autograd.grad(tconv.conv3x3(x, conv, relu=relu), params, g)
-    assert trace.counters()["conv3x3_launches"] - before == 1
+    assert trace.counters()["conv3x3_f32"] - before == 1
     y = torch.nn.functional.conv2d(x, conv.weight, conv.bias, padding=1)
     theirs = torch.autograd.grad(torch.relu(y) if relu else y, params, g)
     for a, b in zip(ours, theirs):
@@ -1015,9 +1015,9 @@ def test_conv3x3_launches_nothing_off_the_route(cuda, no_tf32, monkeypatch, case
     elif case in ("stride2", "1x1"):
         conv = torch.nn.Conv2d(16, 24, 3 if case == "stride2" else 1, stride=2 if case == "stride2" else 1,
                                padding=1 if case == "stride2" else 0).to(cuda)
-    before = trace.counters()["conv3x3_launches"]
+    before = trace.counters()["conv3x3_f32"]
     with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16, enabled=case == "autocast"):
         got = tconv.conv3x3(x, conv, relu=True)
         want = torch.relu(conv(x))
-    assert trace.counters()["conv3x3_launches"] == before
+    assert trace.counters()["conv3x3_f32"] == before
     assert got.dtype == want.dtype and torch.equal(got, want)

@@ -147,7 +147,7 @@ def test_conv3x3_off_the_kernel_is_exactly_the_module(case, bias, relu, monkeypa
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", case == "cpu_tf32_allowed")
     conv = _conv(6, 5, bias, dtype)
     x = torch.randn(2, 6, 7, 9, generator=torch.Generator().manual_seed(1)).to(dtype)
-    before = trace.counters()["conv3x3_launches"]
+    before = trace.counters()["conv3x3_f32"]
     assert not tconv.routed(x, conv)
     with torch.no_grad():
         got = tconv.conv3x3(x, conv, relu=relu)
@@ -155,7 +155,7 @@ def test_conv3x3_off_the_kernel_is_exactly_the_module(case, bias, relu, monkeypa
     if relu:
         want = torch.relu(want)
     assert got.dtype == dtype and torch.equal(got, want)
-    assert trace.counters()["conv3x3_launches"] == before
+    assert trace.counters()["conv3x3_f32"] == before
 
 
 def test_conv3x3_off_the_kernel_keeps_the_modules_gradient():

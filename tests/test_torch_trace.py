@@ -87,10 +87,9 @@ def test_off_records_nothing_and_the_counters_count(model):
     with torch.no_grad():
         model(_batch(), HW, **RENDER)
     assert trace.totals() == {} and trace.drain() == {}
-    trace.count("composite_fwd_launches")
-    trace.count("composite_bwd_launches", 2)
-    assert trace.counters() == {"composite_fwd_launches": 1, "composite_bwd_launches": 2, "rope_launches": 0,
-                                "conv3x3_launches": 0}
+    trace.count("composite_fwd")
+    trace.count("composite_bwd", 2)
+    assert trace.counters() == {"composite_fwd": 1, "composite_bwd": 2, "rope2d": 0, "conv3x3_f32": 0}
     with trace.span("not_a_span"):  # off: the name is not looked at
         pass
     with pytest.raises(ValueError):

@@ -267,7 +267,7 @@ def test_on_the_card_rope_takes_the_kernel_and_the_attention_a_fused_backend():
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             a = port(x)
             torch.cuda.synchronize()
-        launches = trace.counters()["rope_launches"]
+        launches = trace.counters()["rope2d"]
         b = ref(x)
         q = torch.randn(1, 8, 2, 16, dtype=torch.float64, device=dev)
         with pytest.raises(RuntimeError):

@@ -94,9 +94,9 @@ def test_rope2d_qk_on_the_cpu(case):
     else:
         expanded = None if qpos is None else torch.from_numpy(qpos)
     kpos_t = expanded if case in ("qkv_unbind", "expanded") else None if kpos is None else torch.from_numpy(kpos)
-    before = trace.counters()["rope_launches"]
+    before = trace.counters()["rope2d"]
     outs = t_rope_mod.rope2d_qk(q, expanded, k, kpos_t)
-    assert trace.counters()["rope_launches"] == before
+    assert trace.counters()["rope2d"] == before
     for out, x, p, p_np in zip(outs, (q, k), (expanded, kpos_t), (qpos, kpos)):
         if p is None:
             assert out is x
@@ -124,7 +124,7 @@ def test_rope2d_gradient_is_the_inverse_rotation(monkeypatch, wants):
     outputs and gradients are autograd's through apply_rope2d, for the
     sides that want a gradient, and one launch each way."""
     def launch(base, inverse, x, pos, y=None, ypos=None):
-        trace.count("rope_launches")
+        trace.count("rope2d")
         sign = -1 if inverse else 1
         return t_rope(x, sign * pos, base), None if y is None else t_rope(y, sign * ypos, base)
 
@@ -136,13 +136,13 @@ def test_rope2d_gradient_is_the_inverse_rotation(monkeypatch, wants):
     k.requires_grad_(wants in ("both", "k"))
     cot = [torch.from_numpy(rng.normal(size=x.shape).astype(np.float32)) for x in (q, k)]
     leaves = [x for x in (q, k) if x.requires_grad]
-    before = trace.counters()["rope_launches"]
+    before = trace.counters()["rope2d"]
     def grads(outs):
         return torch.autograd.grad(sum((o * c).sum() for o, c in zip(outs, cot)), leaves)
 
     outs = t_rope_mod._Rope2D.apply(100.0, q, qpos, k, kpos)
     ours = grads(outs)
-    assert trace.counters()["rope_launches"] == before + 2
+    assert trace.counters()["rope2d"] == before + 2
     plain_outs = (t_rope(q, qpos), t_rope(k, kpos))
     assert all(torch.equal(a, b) for a, b in zip(outs, plain_outs))
     assert all(torch.equal(a, b) for a, b in zip(ours, grads(plain_outs)))
