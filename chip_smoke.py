@@ -3226,7 +3226,11 @@ def rope_phase(model, batch, hw, render_kwargs, card, calls=2000):
     vit.rope2d_qk = record
     try:
         before = trace.counters()["rope2d"]
-        with torch.inference_mode():
+        # no_grad, where the serving forwards before ran in inference mode:
+        # the encoder's first call of a signature runs eagerly, so the hooks
+        # and the recorder see each attention (a replayed graph runs no
+        # Python).
+        with torch.no_grad():
             model(batch, hw, **render_kwargs)
         torch.cuda.synchronize()
         launched = trace.counters()["rope2d"] - before

@@ -35,14 +35,20 @@ def raw_gaussian_channels(sh_degree: int) -> int:
     return 7 + 3 * d_sh(sh_degree)
 
 
+def opacity_exponent(global_step: int, initial: float = 0.0, final: float = 0.0, warm_up: int = 1) -> float:
+    """The opacity warm-up's exponent at `global_step`: 1 at every step of
+    the release config (initial = final = 0)."""
+    x = initial + min(float(global_step) / warm_up, 1.0) * (final - initial)
+    return 2.0**x
+
+
 def map_pdf_to_opacity(
     pdf: Tensor, global_step: int, initial: float = 0.0, final: float = 0.0,
     warm_up: int = 1,
 ) -> Tensor:
     """Opacity warm-up schedule; the identity at the release config
     (initial = final = 0)."""
-    x = initial + min(float(global_step) / warm_up, 1.0) * (final - initial)
-    exponent = 2.0**x
+    exponent = opacity_exponent(global_step, initial, final, warm_up)
     return 0.5 * (1.0 - (1.0 - pdf) ** exponent + pdf ** (1.0 / exponent))
 
 

@@ -11,10 +11,11 @@ are the reference's (`backbone.enc_blocks.N.attn.qkv.weight`, ...).
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 from torch import Tensor
 
 from .vit import Block, DecoderBlock, PatchEmbed, layer_norm
@@ -28,15 +29,49 @@ ENC_HEADS = 16
 DEC_HEADS = 12
 ROPE_BASE = 100.0
 
+_constants: Dict[tuple, Tensor] = {}
+
+
+def _constant(key: tuple, make: Callable[[], Tensor]) -> Tensor:
+    """make()'s small index tensor, kept under `key` (which names its
+    device). make() builds it with kernels on the device, never from a host
+    list, so the forward has no host copy to wait for and a CUDA graph can
+    capture it. It is built outside inference mode, so that a training
+    forward may save it for backward, and not kept while a graph is being
+    captured, since its memory would then be the graph's."""
+    t = _constants.get(key)
+    if t is None:
+        with torch.inference_mode(False):
+            t = make()
+        if not (t.is_cuda and torch.cuda.is_current_stream_capturing()):
+            _constants[key] = t
+    return t
+
+
+def ctx_view_index(v: int, device) -> Tensor:
+    """(v, v-1) int64: row i lists every view but i, in view order."""
+
+    def make():
+        others = torch.arange(v - 1, device=device)
+        return others + (others >= torch.arange(v, device=device)[:, None])
+
+    return _constant(("ctx_views", v, torch.device(device)), make)
+
 
 def generate_ctx_views(x: Tensor) -> Tensor:
     """(b, v, l, c) -> (b, v, (v-1)*l, c): for each view, the concat of every
     other view's tokens, in view order."""
     b, v, l, c = x.shape
-    idx = torch.tensor(
-        [[j for j in range(v) if j != i] for i in range(v)], device=x.device
-    )
-    return x[:, idx].reshape(b, v, (v - 1) * l, c)
+    return x[:, ctx_view_index(v, x.device)].reshape(b, v, (v - 1) * l, c)
+
+
+def extra_token_pos(n_h: int, dtype: torch.dtype, device) -> Tensor:
+    """(1, 2) [[n_h, 0]]: the grid position of an appended extra token."""
+
+    def make():
+        return F.pad(torch.full((1, 1), n_h, dtype=dtype, device=device), (0, 1))
+
+    return _constant(("extra_pos", n_h, dtype, torch.device(device)), make)
 
 
 class CrocoVitEncoder(nn.Module):
@@ -68,7 +103,7 @@ class CrocoVitEncoder(nn.Module):
         if extra_token is not None:
             n_h = images.shape[1] // self.patch_size
             x = torch.cat([x, extra_token.to(x.dtype)], dim=1)
-            extra_pos = torch.tensor([[n_h, 0]], dtype=pos.dtype, device=pos.device)
+            extra_pos = extra_token_pos(n_h, pos.dtype, pos.device)
             pos = torch.cat([pos, extra_pos[None].expand(x.shape[0], 1, 2)], dim=1)
         for blk in self.enc_blocks:
             x = blk(x, pos)

@@ -11,11 +11,23 @@
     (`encoder_noposplat_multi.py:126-233`).
 
 Each module keeps the reference's key names (`downstream_head1`, ...).
+
+Styl3rEncoder replays an inference forward from CUDA graphs. Where
+`graph_engages` holds (CUDA inputs, eval mode, no grad, no dropout
+generator, no aux outputs, the whole forward), the first call of an input
+signature (`graph_key`) runs eagerly on a side stream, the second captures
+one graph a span segment (backbone, heads, stylizer, heads, adapter) in one
+memory pool, and each later call copies its inputs into the graphs' own,
+replays the segments, each inside its span, and returns clones of the
+Gaussians. A replay is a handful of host calls in place of the forward's
+~2,800 launches, and runs the same kernels on the same data.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+import contextlib
+from collections import OrderedDict
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -23,7 +35,8 @@ from torch import Tensor
 
 from ..geometry.gaussians import Gaussians
 from ..utils import trace
-from .adapter import d_sh, map_pdf_to_opacity, raw_gaussian_channels, unified_gaussian_adapter
+from ..utils.cuda_build import KERNELS
+from .adapter import d_sh, map_pdf_to_opacity, opacity_exponent, raw_gaussian_channels, unified_gaussian_adapter
 from .croco import CrocoEncBackbone, MultiViewCrocoBackbone, StructureBuilder, TokenStylizer
 from .dpt import DPTGSHead, DPTGSSHHead, DPTPts3dHead
 from .precision import compute_in
@@ -45,22 +58,106 @@ def _head_dims(enc_dim, dec_dim, dec_depth, head_feature_dim, head_layer_dims, p
 
 def _adapt(raw: Tensor, pts: Tensor, encoder: nn.Module, global_step: int, return_aux: bool):
     """Raw (b, v, h, w, 1 + channels) head outputs and (b, v, h, w, 3) points
-    -> Gaussians through the unified adapter (+ the aux dict)."""
+    -> Gaussians through the unified adapter (+ the aux dict). The caller
+    opens the `adapter` span."""
     b, v, h, w, _ = raw.shape
-    with trace.span("adapter"):
-        densities = torch.sigmoid(raw[..., 0])
-        opacities = map_pdf_to_opacity(
-            densities, global_step, encoder.opacity_initial, encoder.opacity_final, encoder.opacity_warm_up,
-        )
-        gaussians = unified_gaussian_adapter(
-            means=pts.reshape(b, v * h * w, 3),
-            opacities=opacities.reshape(b, v * h * w),
-            raw=raw[..., 1:].reshape(b, v * h * w, -1),
-            sh_degree=encoder.sh_degree,
-        )
+    densities = torch.sigmoid(raw[..., 0])
+    opacities = map_pdf_to_opacity(
+        densities, global_step, encoder.opacity_initial, encoder.opacity_final, encoder.opacity_warm_up,
+    )
+    gaussians = unified_gaussian_adapter(
+        means=pts.reshape(b, v * h * w, 3),
+        opacities=opacities.reshape(b, v * h * w),
+        raw=raw[..., 1:].reshape(b, v * h * w, -1),
+        sh_degree=encoder.sh_degree,
+    )
     if return_aux:
         return gaussians, {"pts3d": pts, "depths": pts[..., 2], "densities": densities}
     return gaussians
+
+
+GRAPH_SIGNATURES = 4  # the input signatures whose graphs a Styl3rEncoder keeps, the most recent
+
+
+def graph_engages(training: bool, grad_enabled: bool, inputs: Sequence[Tensor], return_aux: bool,
+                  generator: Optional[torch.Generator], distill_only: bool) -> bool:
+    """Whether Styl3rEncoder.forward runs from CUDA graphs: an inference
+    forward (eval mode, grad off) of CUDA inputs that draws no dropout and
+    returns the Gaussians alone."""
+    return (not training and not grad_enabled and generator is None and not return_aux and not distill_only
+            and all(t.is_cuda for t in inputs))
+
+
+def graph_key(inputs: Sequence[Tensor], transpose_maps: bool, exponent: float) -> tuple:
+    """What the forward's Python decides on besides the weights: each
+    input's shape, strides, dtype and device; `transpose_maps`; inference
+    mode (an inference tensor is written only inside it); autocast on the
+    inputs' device; the flags that pick kernels (TF32 in cuDNN and in
+    matmuls, the matmul precision, SDPA's fused backends, cuDNN's); and the
+    opacity warm-up's exponent (1 at every step of the release config)."""
+    device = inputs[0].device.type
+    cudnn, cuda = torch.backends.cudnn, torch.backends.cuda
+    return (
+        tuple((t.shape, t.stride(), t.dtype, t.device) for t in inputs), transpose_maps,
+        torch.is_inference_mode_enabled(), torch.is_autocast_enabled(device), torch.get_autocast_dtype(device),
+        cudnn.allow_tf32, cuda.matmul.allow_tf32, torch.get_float32_matmul_precision(),
+        cuda.flash_sdp_enabled(), cuda.mem_efficient_sdp_enabled(), cuda.cudnn_sdp_enabled(),
+        cudnn.enabled, cudnn.benchmark, cudnn.deterministic, exponent,
+    )
+
+
+_side_streams: Dict[torch.device, torch.cuda.Stream] = {}
+
+
+def _side_stream(device: torch.device) -> torch.cuda.Stream:
+    """The stream a device's graphs are captured on, and warmed up on."""
+    stream = _side_streams.get(device)
+    if stream is None:
+        stream = _side_streams[device] = torch.cuda.Stream(device)
+    return stream
+
+
+@contextlib.contextmanager
+def _on_side_stream(device: torch.device):
+    """Runs the scope's work on the side stream, after the current stream's
+    work so far and before its work to come."""
+    current, side = torch.cuda.current_stream(device), _side_stream(device)
+    side.wait_stream(current)
+    try:
+        with torch.cuda.stream(side):
+            yield
+    finally:
+        current.wait_stream(side)
+
+
+class _Graph(NamedTuple):
+    """One signature's captured forward: the inputs its graphs read, its
+    segments (span name, graph) in order, the Gaussians they write, and the
+    kernel launches a forward counts."""
+
+    inputs: Tuple[Tensor, ...]
+    segments: List[Tuple[str, torch.cuda.CUDAGraph]]
+    outputs: Gaussians
+    launches: Dict[str, int]
+
+    def replay(self, inputs: Sequence[Tensor]) -> Gaussians:
+        for static, t in zip(self.inputs, inputs):
+            static.copy_(t)
+        for name, graph in self.segments:
+            with trace.span(name):
+                graph.replay()
+        for name, n in self.launches.items():
+            trace.count(name, n)
+        # Clones: the next replay overwrites the graphs' own.
+        return Gaussians(*(None if t is None else t.clone() for t in self.outputs))
+
+
+class _Graphs(OrderedDict):
+    """A Styl3rEncoder's graphs by graph_key, the most recently used last;
+    None for a signature seen once. Copies and pickles start empty."""
+
+    def __reduce__(self):
+        return _Graphs, ()
 
 
 class Styl3rEncoder(nn.Module):
@@ -115,6 +212,7 @@ class Styl3rEncoder(nn.Module):
         self.gaussian_param_head = DPTGSHead(out_channels=structure_channels, **head_dims)
         self.gaussian_param_head2 = DPTGSHead(out_channels=structure_channels, **head_dims)
         self.gaussian_appearance_head = DPTGSSHHead(out_channels=3 * d_sh(sh_degree), **head_dims)
+        self._graphs = _Graphs()
 
     def heads(self):
         return (
@@ -125,11 +223,24 @@ class Styl3rEncoder(nn.Module):
     def cast_dtypes(self) -> None:
         """Store the backbone, the stylizer and the DPT trunks in their
         compute dtypes (serving only: training keeps f32 weights)."""
+        self._graphs.clear()
         self.backbone.to(self.backbone_dtype)
         self.token_stylizer.to(self.backbone_dtype)
         if self.head_trunk_dtype is not None:
             for head in self.heads():
                 head.cast_trunk(self.head_trunk_dtype)
+
+    def _apply(self, fn, recurse=True):
+        # .to(), .half(), ...: the parameters may move, so the graphs go.
+        self._graphs.clear()
+        return super()._apply(fn, recurse)
+
+    def _load_from_state_dict(self, state_dict, prefix, local_metadata, *args, **kwargs):
+        # assign=True puts new tensors in the parameters' place; an in-place
+        # load writes the storage the graphs read.
+        if local_metadata.get("assign_to_params_buffers", False):
+            self._graphs.clear()
+        super()._load_from_state_dict(state_dict, prefix, local_metadata, *args, **kwargs)
 
     def forward(
         self,
@@ -151,13 +262,82 @@ class Styl3rEncoder(nn.Module):
         distill_only (stage-0 distillation): stop after the point maps and
         return {"pts3d", "depths"}. The JAX step runs the whole encoder and
         XLA drops the stylizer and the gs heads, which its loss does not
-        read; here they are not run."""
+        read; here they are not run.
+
+        An inference forward replays CUDA graphs (the module docstring)."""
+        inputs = (context_images, context_intrinsics, style_image)
+        if context_images.is_cuda:
+            trace.count("encoder_calls")
+        if not graph_engages(self.training, torch.is_grad_enabled(), inputs, return_aux, generator, distill_only):
+            return self._forward(*inputs, global_step, return_aux, transpose_maps, generator, distill_only,
+                                 trace.span)
+        exponent = opacity_exponent(global_step, self.opacity_initial, self.opacity_final, self.opacity_warm_up)
+        key = graph_key(inputs, transpose_maps, exponent)
+        graphs = self._graphs
+        if key not in graphs:
+            graphs[key] = None
+            while len(graphs) > GRAPH_SIGNATURES:
+                graphs.popitem(last=False)
+            # The first call runs eagerly, on the stream the second captures
+            # on: what the libraries set up there lazily is set up outside
+            # the capture.
+            with _on_side_stream(context_images.device):
+                return self._forward(*inputs, global_step, False, transpose_maps, None, False, trace.span)
+        graphs.move_to_end(key)
+        graph = graphs[key]
+        if graph is None:
+            graph = graphs[key] = self._capture(inputs, global_step, transpose_maps)
+            trace.count("encoder_captures")
+        else:
+            trace.count("encoder_replays")
+        return graph.replay(inputs)
+
+    def _capture(self, inputs: Sequence[Tensor], global_step: int, transpose_maps: bool) -> _Graph:
+        """The forward on inputs shaped as `inputs`, captured one graph a
+        segment into one memory pool on the side stream. The kernels it
+        records do not run, so their launches leave the counters until a
+        replay counts them."""
+        device = inputs[0].device
+        static = tuple(torch.empty_like(t) for t in inputs)
+        pool, stream, segments = torch.cuda.graph_pool_handle(), _side_stream(device), []
+
+        @contextlib.contextmanager
+        def segment(name):
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool, stream=stream):
+                yield
+            segments.append((name, graph))
+
+        before = trace.counters()
+        # No autocast cache: a weight cast cached by an autocast scope
+        # around this call would be read by the graphs after it is freed.
+        cache = torch.is_autocast_cache_enabled()
+        torch.set_autocast_cache_enabled(False)
+        try:
+            with torch.cuda.device(device):
+                outputs = self._forward(*static, global_step, False, transpose_maps, None, False, segment)
+        finally:
+            torch.set_autocast_cache_enabled(cache)
+        after = trace.counters()
+        launches = {name: after[name] - before[name] for name in KERNELS if after[name] != before[name]}
+        for name, n in launches.items():
+            trace.count(name, -n)
+        return _Graph(static, segments, outputs, launches)
+
+    def _forward(
+        self, context_images: Tensor, context_intrinsics: Tensor, style_image: Tensor, global_step: int,
+        return_aux: bool, transpose_maps: bool, generator: Optional[torch.Generator], distill_only: bool,
+        segment: Callable[[str], contextlib.AbstractContextManager],
+    ):
+        """The forward, each span segment inside `segment(name)`: the span
+        eagerly, a graph's capture in _capture. Every kernel runs inside a
+        segment, since a capture records nothing else."""
         b, v, h, w, _ = context_images.shape
 
-        with trace.span("backbone"), compute_in(self.backbone_dtype, self.backbone.dtype, context_images.device.type):
+        with segment("backbone"), compute_in(self.backbone_dtype, self.backbone.dtype, context_images.device.type):
             enc_feat, enc_pos, dec_feat = self.backbone(context_images, context_intrinsics)
 
-        with trace.span("heads"):
+        with segment("heads"):
             dec0 = [t[:, 0].float() for t in dec_feat]
             decr = [t[:, 1:].reshape(b * (v - 1), *t.shape[2:]).float() for t in dec_feat]
             pts0 = self.downstream_head1(dec0, (h, w))
@@ -167,10 +347,10 @@ class Styl3rEncoder(nn.Module):
             pts = pts_all.transpose(2, 3) if transpose_maps else pts_all
             return {"pts3d": pts, "depths": pts[..., 2]}
 
-        with trace.span("stylizer"), compute_in(self.backbone_dtype, self.backbone.dtype, context_images.device.type):
+        with segment("stylizer"), compute_in(self.backbone_dtype, self.backbone.dtype, context_images.device.type):
             sty_feat = self.token_stylizer(style_image, enc_feat, enc_pos)
 
-        with trace.span("heads"):
+        with segment("heads"):
             imgs = context_images.float()
             gs0 = self.gaussian_param_head(dec0, imgs[:, 0], (h, w), generator)
             gsr = self.gaussian_param_head2(
@@ -180,12 +360,13 @@ class Styl3rEncoder(nn.Module):
 
             sty_flat = [t.reshape(b * v, *t.shape[2:]).float() for t in sty_feat]
             gs_appear = self.gaussian_appearance_head(sty_flat, (h, w), generator).reshape(b, v, h, w, -1)
+            raw = torch.cat([gs_struct, gs_appear], dim=-1)
 
-        raw = torch.cat([gs_struct, gs_appear], dim=-1)
         if transpose_maps:
             pts_all = pts_all.transpose(2, 3)
             raw = raw.transpose(2, 3)
-        return _adapt(raw, pts_all, self, global_step, return_aux)
+        with segment("adapter"):
+            return _adapt(raw, pts_all, self, global_step, return_aux)
 
 
 class Styl3rTokenStyleEncoder2View(nn.Module):
@@ -274,7 +455,9 @@ class Styl3rTokenStyleEncoder2View(nn.Module):
         sty_flat = [t.reshape(b * v, *t.shape[2:]).float() for t in sty]
         gs_struct = self.gaussian_structure_head(struct_flat, (h, w), generator).reshape(b, v, h, w, -1)
         gs_appear = self.gaussian_appearance_head(sty_flat, (h, w), generator).reshape(b, v, h, w, -1)
-        return _adapt(torch.cat([gs_struct, gs_appear], dim=-1), pts, self, global_step, return_aux)
+        raw = torch.cat([gs_struct, gs_appear], dim=-1)
+        with trace.span("adapter"):
+            return _adapt(raw, pts, self, global_step, return_aux)
 
 
 class NoPoSplatMultiEncoder(nn.Module):
@@ -344,4 +527,5 @@ class NoPoSplatMultiEncoder(nn.Module):
         gs0 = self.gaussian_param_head(dec0, imgs[:, 0], (h, w), generator)
         gsr = self.gaussian_param_head2(decr, imgs[:, 1:].reshape(b * (v - 1), h, w, 3), (h, w), generator)
         raw = torch.cat([gs0[:, None], gsr.reshape(b, v - 1, h, w, -1)], dim=1)
-        return _adapt(raw, pts, self, global_step, return_aux)
+        with trace.span("adapter"):
+            return _adapt(raw, pts, self, global_step, return_aux)

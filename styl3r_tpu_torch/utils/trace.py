@@ -16,7 +16,8 @@ a span adds no kernel and no synchronisation. While the current stream is
 being captured into a CUDA graph a span records no event.
 
 `count(name, n)` adds to an integer counter that is always on: the kernel
-launches, one counter a kernel of utils/cuda_build.py. Reads
+launches, one counter a kernel of utils/cuda_build.py, and the Styl3r
+encoder's calls, CUDA-graph captures and replays. Reads
 (`totals`, `counters`, `drain`) may synchronise; they are for after the
 work. Every span and counter name is declared below; recording another is
 an error.
@@ -60,8 +61,10 @@ SPANS = (
 )
 
 # Launches of each csrc/<name>.cu's kernels, by name, as cuda_build.launch
-# counts them.
-COUNTERS = tuple(KERNELS)
+# counts them (a replayed CUDA graph counts the launches it holds); then
+# models/encoder.py's Styl3rEncoder.forward calls on a CUDA device, and
+# those of them that captured its CUDA graphs and that replayed them.
+COUNTERS = tuple(KERNELS) + ("encoder_calls", "encoder_captures", "encoder_replays")
 
 _depth = 0  # open enabled() scopes
 _pending: Dict[str, List[tuple]] = {}  # closed spans whose stamps are not yet read

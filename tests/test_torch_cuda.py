@@ -1021,3 +1021,133 @@ def test_conv3x3_launches_nothing_off_the_route(cuda, no_tf32, monkeypatch, case
         want = torch.relu(conv(x))
     assert trace.counters()["conv3x3_f32"] == before
     assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+# -- the encoder's CUDA graphs (models/encoder.py) -----------------------------
+
+ENCODER_COUNTS = ("rope2d", "conv3x3_f32", "encoder_calls", "encoder_captures", "encoder_replays")
+
+
+@pytest.fixture(scope="module")
+def serving():
+    """The full-width serving model (bench/common.py: bf16 trunks stored in
+    bf16, the points heads' f32 head["2"]), built once for the module."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from styl3r_tpu_torch.bench import common
+
+    return common.serving_model(torch.device("cuda"), {})
+
+
+def _encoder_inputs(b, seed, device, hw=256, v=2):
+    """Context images, intrinsics and a style image, as predict_gaussians
+    hands them to the encoder."""
+    gen = torch.Generator(device).manual_seed(seed)
+    images = torch.rand(b, v, hw, hw, 3, generator=gen, device=device) * 2 - 1
+    k = torch.tensor([[1.0, 0.0, 0.5], [0.0, 1.0, 0.5], [0.0, 0.0, 1.0]], device=device)
+    return images, k.expand(b, v, 3, 3).contiguous(), torch.rand(b, hw, hw, 3, generator=gen, device=device) * 2 - 1
+
+
+def _counted(fn):
+    """fn()'s result and what it added to the kernel and encoder counters."""
+    before = trace.counters()
+    out = fn()
+    torch.cuda.synchronize()
+    after = trace.counters()
+    return out, {name: after[name] - before[name] for name in ENCODER_COUNTS}
+
+
+def _same(a, b):
+    return all((x is None and y is None) or torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _eager(encoder, inputs):
+    """The eager forward on the current stream (return_aux declines the
+    graphs)."""
+    return encoder(*inputs, return_aux=True)[0]
+
+
+@pytest.mark.parametrize("b", [1, 8])
+def test_replayed_gaussians_equal_the_eager_forward_bitwise(cuda, no_tf32, serving, b):
+    """At the serving configuration: a signature's first call (eager, on the
+    side stream), the call that captures and the replays give the eager
+    forward's Gaussians bit for bit."""
+    enc = serving.encoder
+    enc._graphs.clear()
+    x, y = _encoder_inputs(b, 0, cuda), _encoder_inputs(b, 1, cuda)
+    with torch.inference_mode():
+        want = [_eager(enc, x), _eager(enc, y)] * 2
+        got = [enc(*x), enc(*y), enc(*x), enc(*y)]
+    torch.cuda.synchronize()
+    assert [_same(g, w) for g, w in zip(got, want)] == [True] * 4
+    assert not _same(got[0], got[1])
+
+
+def test_a_replay_leaves_the_gaussians_returned_before(cuda, no_tf32, serving):
+    enc = serving.encoder
+    enc._graphs.clear()
+    x, y = _encoder_inputs(1, 2, cuda), _encoder_inputs(1, 3, cuda)
+    with torch.inference_mode():
+        want = _eager(enc, x)
+        enc(*x), enc(*x)  # eager, then the capture
+        first = enc(*x)
+        second = enc(*y)
+    torch.cuda.synchronize()
+    assert _same(first, want) and not _same(second, first)
+
+
+def test_an_eager_encoder_forward_does_not_synchronise(cuda, no_tf32, serving):
+    """Three views at 192^2: the context-view index and the intrinsics
+    token's position are built in the forward, on the device."""
+    x = _encoder_inputs(1, 4, cuda, hw=192, v=3)
+    torch.cuda.synchronize()
+    mode = torch.cuda.get_sync_debug_mode()
+    with torch.inference_mode():
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            _eager(serving.encoder, x)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+
+
+def test_each_signature_is_captured_once_and_replays_count_its_kernels(cuda, no_tf32, serving):
+    """Inference mode and no_grad are two signatures: each is eager, then
+    captured, then replayed; every forward counts one encoder call, 120 RoPE
+    and 2 conv3x3_f32 launches, as the eager forward does."""
+    enc = serving.encoder
+    enc._graphs.clear()
+    x = _encoder_inputs(1, 5, cuda)
+    counts = []
+    for scope in (torch.inference_mode, torch.no_grad):
+        for _ in range(3):
+            with scope():
+                counts.append(_counted(lambda: enc(*x))[1])
+    assert [c["encoder_captures"] for c in counts] == [0, 1, 0] * 2
+    assert [c["encoder_replays"] for c in counts] == [0, 0, 1] * 2
+    assert [(c["encoder_calls"], c["rope2d"], c["conv3x3_f32"]) for c in counts] == [(1, 120, 2)] * 6
+    assert len(enc._graphs) == 2
+
+
+@pytest.mark.parametrize("change", ["cast_dtypes", "load_in_place", "load_assign"])
+def test_the_calls_after_new_weights_equal_the_eager_forward(cuda, no_tf32, change):
+    """cast_dtypes and load_state_dict(assign=True) drop the graphs; an
+    in-place load writes the storage the graphs read, so they replay on."""
+    from styl3r_tpu_torch.bench import common
+
+    model = common.serving_model(cuda, common.TINY_HEADS, keep_f32_params=True)
+    enc = model.encoder
+    x = _encoder_inputs(1, 6, cuda, hw=64)
+    with torch.inference_mode():
+        old = [enc(*x) for _ in range(3)][-1]  # eager, capture, replay
+    if change == "cast_dtypes":
+        model.cast_dtypes()
+    else:
+        state = {k: v * 1.5 if v.is_floating_point() else v for k, v in model.state_dict().items()}
+        model.load_state_dict(state, assign=change == "load_assign")
+    with torch.inference_mode():
+        want = _eager(enc, x)
+        got, counts = zip(*(_counted(lambda: enc(*x)) for _ in range(3)))
+    assert change == "cast_dtypes" or not _same(want, old)
+    assert [_same(g, want) for g in got] == [True] * 3
+    replays = [c["encoder_replays"] for c in counts]
+    assert replays == ([1, 1, 1] if change == "load_in_place" else [0, 0, 1])

@@ -89,7 +89,8 @@ def test_off_records_nothing_and_the_counters_count(model):
     assert trace.totals() == {} and trace.drain() == {}
     trace.count("composite_fwd")
     trace.count("composite_bwd", 2)
-    assert trace.counters() == {"composite_fwd": 1, "composite_bwd": 2, "rope2d": 0, "conv3x3_f32": 0}
+    assert trace.counters() == {"composite_fwd": 1, "composite_bwd": 2, "rope2d": 0, "conv3x3_f32": 0,
+                                "encoder_calls": 0, "encoder_captures": 0, "encoder_replays": 0}
     with trace.span("not_a_span"):  # off: the name is not looked at
         pass
     with pytest.raises(ValueError):
@@ -194,6 +195,22 @@ def test_every_span_has_its_reader():
     assert read <= set(trace.SPANS), read - set(trace.SPANS)
     assert set(trace.SPANS) - read == TRAINER_LOGGED
     assert len(set(trace.SPANS)) == len(trace.SPANS) and len(set(trace.COUNTERS)) == len(trace.COUNTERS)
+
+
+@pytest.mark.parametrize("metric", ["encoder_replay_share.serve", "encoder_replay_share.batch"])
+def test_the_replay_share_readers_read_the_encoder_counters(metric, monkeypatch):
+    """None where the program keeps no encoder counters (a program before
+    them) or ran no encoder forward on the card; else 100 x replays over
+    calls."""
+    from portbench import run
+
+    read = run.reader(metric)
+    kernels_only = {name: 0 for name in trace.COUNTERS if not name.startswith("encoder_")}
+    for counts, want in ((kernels_only, None),
+                         (dict(kernels_only, encoder_calls=0, encoder_captures=0, encoder_replays=0), None),
+                         (dict(kernels_only, encoder_calls=8, encoder_captures=1, encoder_replays=6), 75.0)):
+        monkeypatch.setattr(trace, "counters", lambda counts=counts: dict(counts))
+        assert read({}) == want
 
 
 def test_trace_breakdown_names_a_gap_by_its_span():
